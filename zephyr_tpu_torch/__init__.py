@@ -1,0 +1,22 @@
+'''
+zephyr_tpu_torch: the PyTorch + CUDA port of zephyr_tpu, for one NVIDIA
+Hopper GPU (H100).
+
+The layout mirrors zephyr_tpu, so each module's counterpart is found at
+the same path:
+
+- zephyr_tpu_torch.core     — declarative configuration (numpy)
+- zephyr_tpu_torch.ops      — coefficient-plane builders, stencil algebra
+                              and its torch twins, the CUDA kernel loader
+- zephyr_tpu_torch.solver   — multigrid, stratified PCR, BiCGStab and the
+                              fused hybrid Helmholtz solve
+- zephyr_tpu_torch.backend  — forward modelling (MiniZephyr, sources, the
+                              analytical oracle)
+- zephyr_tpu_torch.convert  — the JAX package's prepared state into the
+                              port's
+- zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K4 (sm_90a)
+
+The port imports torch, numpy and scipy, never jax.
+'''
+
+__version__ = '0.1.0'
