@@ -8,18 +8,30 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
 
 1. versions, the card's name and power limit, the TF32 switches (both
    set off and printed);
-2. build the CUDA kernels K1-K4 from zephyr_tpu_torch/csrc with nvcc;
+2. build the CUDA kernels K1-K5 and K7 from zephyr_tpu_torch/csrc with
+   nvcc (one nvcc per source, all started together);
 3. hold each kernel against its plain torch twin on the card, complex64,
    at the main path's shapes and at odd ones (fail above 1e-5 relative to
-   the twin's largest magnitude), and time both;
+   the twin's largest magnitude), and time both; K3 also at nz=2048 (the
+   default config's full-resolution family, 11 levels);
 4. the forward-modelling oracle: ``MiniZephyr(config) * q`` on the card
-   with the production solver options, against AnalyticalHelmholtz
+   with the production solver options (4) and with no solverOpts, the
+   default SolverConfig (4b), against AnalyticalHelmholtz
    (interior-window error must stay below 1e-2);
 5. the headline: 2048^2, 16 point sources, 16 cells per wavelength,
    ``prepare_operator`` + ``make_chunked_solver(cfg, chunk=32)`` on the
-   homogeneous and the 4-layer model (relres <= 1e-5), plus the
-   homogeneous oracle error;
-6. the launch counts of K1-K4 over phases 4-5 (each must be > 0).
+   homogeneous and the 4-layer model with the production config, and on
+   the homogeneous model with the default config (5b) (relres <= 1e-5),
+   plus the homogeneous oracle errors;
+6. (after 7) the launch counts of every kernel over phases 4-7 (each must
+   be > 0);
+7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
+   size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
+   by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
+   at 2048^2 x 16 with the production config, timed; (c) at 512^2
+   layered, one frequency, the gradient w.r.t. c by autograd through
+   ``solve`` against ``fwi_misfit_grad_chunked`` (max-norm relative
+   difference <= 1e-3).
 
 It prints one JSON line of per-kernel results, the nvidia-smi line, and
 as its last line {"ok": true, "device": {...}}. It needs one CUDA device
@@ -52,6 +64,12 @@ KERNELS = {
     'prolong_add_smooth': ('K4',
                            'zephyr_tpu_torch/csrc/k4_prolong_add_smooth.cu',
                            'zephyr_tpu/ops/pallas_stencil.py:1321'),
+    'jacobi_sweep': ('K5', 'zephyr_tpu_torch/csrc/k5_jacobi_sweep.cu',
+                     'zephyr_tpu/ops/pallas_stencil.py:450'),
+    'restrict': ('K7', 'zephyr_tpu_torch/csrc/k7_transfer.cu',
+                 'zephyr_tpu/ops/pallas_transfer.py:77'),
+    'prolong': ('K7', 'zephyr_tpu_torch/csrc/k7_transfer.cu',
+                'zephyr_tpu/ops/pallas_transfer.py:77'),
 }
 KERNEL_TOL = 1e-5
 #: the device of every phase (a CPU rehearsal of the control flow may set
@@ -132,11 +150,12 @@ def level_inputs(n_z, n_x, R, gen, shifted=True):
     return planes.contiguous(), D, mask, field
 
 
-def strat_factors(n):
+def strat_factors(n, full=False):
     '''
-    bf16 PCR factors of the fused cycle's half grid for the n x n
-    homogeneous model (the stratified coefficients of its Galerkin-
-    coarsened true and shifted operators).
+    bf16 PCR factors for the n x n homogeneous model: of the fused
+    cycle's half grid (the stratified coefficients of its Galerkin-
+    coarsened true and shifted operators), or with ``full`` of the
+    default config's full-resolution family (the fine planes).
     '''
     import torch
     from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
@@ -151,6 +170,8 @@ def strat_factors(n):
     tp = minizephyr_planes(c, rho, f)[None, None]
     pp = minizephyr_planes(shifted_velocity(c, 0.5j), rho, f,
                            pml_cap=1.0)[None, None]
+    if full:
+        return pcr_precompute(*stratified_coeffs(tp, pp, 0.5j, 'auto'))
     mask = _ring_mask(n, n, torch.float32, DEV)
     ct = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(tp, mask)))
     cp = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(pp, mask)))
@@ -166,12 +187,13 @@ def check_kernels():
     import torch
     from zephyr_tpu_torch.ops import cuda_kernels as ck
     from zephyr_tpu_torch.ops import stencil
-    from zephyr_tpu_torch.solver import stratified
+    from zephyr_tpu_torch.solver import multigrid, stratified
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     results = {}
 
-    def record(name, shape_desc, out, ref, main=False, timing=None):
+    def record(name, shape_desc, out, ref, main=False, timing=None,
+               key=None):
         rel, abs_err = rel_err(out, ref)
         say('  %-19s %-26s rel err %.3e  abs err %.3e'
             % (name, shape_desc, rel, abs_err))
@@ -179,13 +201,14 @@ def check_kernels():
             fail('%s disagrees with its twin at %s: %.3e > %.0e'
                  % (name, shape_desc, rel, KERNEL_TOL))
         if main:
-            results[name] = {'max_abs_err': abs_err}
+            key = key or name
+            results[key] = {'max_abs_err': abs_err}
             kern, plain = timing
-            results[name]['ms'] = cuda_ms(kern)
-            results[name]['plain_ms'] = cuda_ms(plain)
+            results[key]['ms'] = cuda_ms(kern)
+            results[key]['plain_ms'] = cuda_ms(plain)
             say('  %-19s %-26s kernel %.3f ms  plain %.3f ms'
-                % (name, shape_desc, results[name]['ms'],
-                   results[name]['plain_ms']))
+                % (name, shape_desc, results[key]['ms'],
+                   results[key]['plain_ms']))
 
     # K1, K2 (1 and 2 sweeps), K4: main-path shapes and an odd one
     for (nz, nx, R, main) in ((2048, 2048, 16, True),
@@ -213,14 +236,31 @@ def check_kernels():
                stencil._pas_ref(planes, D, mask, b, u, ec), main,
                (lambda: ck.prolong_add_smooth(planes, D, mask, b, u, ec),
                 lambda: stencil._pas_ref(planes, D, mask, b, u, ec)))
+        record('jacobi_sweep', desc, ck.jacobi_sweep(planes, D, b, u),
+               stencil._jacobi_ref(planes, D, b, u), main,
+               (lambda: ck.jacobi_sweep(planes, D, b, u),
+                lambda: stencil._jacobi_ref(planes, D, b, u)))
+        cdesc = '%s -> %dx%d' % (desc, (nz + 1) // 2, (nx + 1) // 2)
+        record('restrict', cdesc, ck.restrict(b),
+               multigrid._restrict_ref(b), main,
+               (lambda: ck.restrict(b),
+                lambda: multigrid._restrict_ref(b)))
+        pdesc = '%dx%d -> %s' % ((nz + 1) // 2, (nx + 1) // 2, desc)
+        record('prolong', pdesc, ck.prolong(ec, nz, nx),
+               multigrid._prolong_ref(ec, nz, nx), main,
+               (lambda: ck.prolong(ec, nz, nx),
+                lambda: multigrid._prolong_ref(ec, nz, nx)))
         del planes, D, mask, u, b, ec
         torch.cuda.empty_cache()
 
     # K3: half grids of the 2048^2 (nz=1024, 10 levels) and 1024^2
-    # (nz=512, 9 levels) fused cycles; R=1 and R=16
-    for n, main_R in ((2048, 16), (1024, None)):
-        pcr = strat_factors(n)
-        nz = n // 2
+    # (nz=512, 9 levels) fused cycles, and the full-resolution family of
+    # the default config at 2048^2 (nz=2048, 11 levels, strip width 4);
+    # R=1 and R=16
+    for n, main_R, full in ((2048, 16, False), (1024, None, False),
+                            (2048, 16, True)):
+        pcr = strat_factors(n, full)
+        nz = n if full else n // 2
         for R in (1, 16):
             b = torch.complex(torch.randn((R, nz, nz), generator=gen,
                                           device=DEV),
@@ -233,19 +273,27 @@ def check_kernels():
                    stratified._pcr_sweep_bf16_ref(*args),
                    R == main_R,
                    (lambda: ck.pcr_sweep(*args),
-                    lambda: stratified._pcr_sweep_bf16_ref(*args)))
-    torch.cuda.empty_cache()
+                    lambda: stratified._pcr_sweep_bf16_ref(*args)),
+                   key='pcr_sweep nz=%d' % nz if full else None)
+            del b, args
+        del pcr
+        torch.cuda.empty_cache()
     return results
 
 
 # --- phases 4-5 -----------------------------------------------------------
 
-def oracle_flow():
-    'Phase 4: MiniZephyr * q on the card against the analytical oracle.'
+def oracle_flow(opts=PRODUCTION):
+    '''
+    Phase 4: MiniZephyr * q on the card against the analytical oracle,
+    with the given solverOpts (None: none, the default SolverConfig).
+    '''
     from zephyr_tpu_torch.backend import (MiniZephyr, SparseKaiserSource,
                                           AnalyticalHelmholtz)
     config = {'c': 2500., 'rho': 1., 'nx': 100, 'nz': 200, 'freq': 200.,
-              'device': DEV, 'solverOpts': dict(PRODUCTION)}
+              'device': DEV}
+    if opts is not None:
+        config['solverOpts'] = dict(opts)
     loc = np.array([[25., 25.]])
     t0 = time.perf_counter()
     u = MiniZephyr(config) * SparseKaiserSource(config)(loc)
@@ -258,8 +306,9 @@ def oracle_flow():
     uM, uA = u.ravel().reshape(200, 100)[seg], uAH.reshape(200, 100)[seg]
     rel = (uA - uM) / abs(uA)
     err = np.sqrt((rel.conj() * rel).sum()).real / rel.size
-    say('oracle 200x100 MiniZephyr * q on %s: error %.3e (limit 1e-2), '
-        '%.2f s' % (DEV, err, secs))
+    say('oracle 200x100 MiniZephyr * q on %s, %s config: error %.3e '
+        '(limit 1e-2), %.2f s' % (DEV, 'default' if opts is None
+                                  else 'production', err, secs))
     if not err < 1e-2:
         fail('oracle error %.3e >= 1e-2' % err)
     return err
@@ -273,30 +322,32 @@ def layered_c(n):
     return c
 
 
-def headline(n, nsrc, medium, card):
+def headline(n, nsrc, medium, card, opts=PRODUCTION):
     '''
     Phase 5: prepare_operator + make_chunked_solver on the card at n^2
-    with nsrc point sources; returns a dict of the run's numbers.
+    with nsrc point sources and the given solver options (None: the
+    default SolverConfig); returns a dict of the run's numbers.
     '''
     import torch
     from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
     from zephyr_tpu_torch.ops.special import hankel1_0
     from zephyr_tpu_torch.solver.helmholtz import (
-        SolverConfig, prepare_operator, make_chunked_solver,
+        prepare_operator, make_chunked_solver, resolve_solver_config,
         shifted_velocity, resolve_panels)
     cval = 1500.0
     freq = cval / 16.0
     c_np = (np.full((n, n), cval, np.float32) if medium == 'hom'
             else layered_c(n))
-    cfg = resolve_panels(SolverConfig(**PRODUCTION), c_np)
+    cname = 'default' if opts is None else 'production'
+    cfg = resolve_panels(resolve_solver_config(opts, torch.complex64), c_np)
     c = torch.as_tensor(c_np, device=DEV).to(torch.complex64)
     rho = torch.ones((n, n), dtype=torch.float32, device=DEV)
-    torch.cuda.synchronize()
+    reset_peak()
     t0 = time.perf_counter()
     planes = minizephyr_planes(c, rho, freq)[None, None]
     pplanes = minizephyr_planes(shifted_velocity(c, cfg.shift), rho, freq,
                                 pml_cap=cfg.pml_cap)[None, None]
-    op = prepare_operator(planes, pplanes, cfg)
+    op = prepare_operator(planes, pplanes, cfg, with_transpose=False)
     torch.cuda.synchronize()
     t_prep = time.perf_counter() - t0
 
@@ -318,13 +369,14 @@ def headline(n, nsrc, medium, card):
                                                   cfg.tol))
     if not bool(torch.isfinite(x).all()):
         fail('%s %d^2: non-finite wavefield' % (medium, n))
-    out = {'medium': medium, 'n': n, 'nsrc': nsrc, 'iters': iters,
-           'relres': relres, 'wall_s': wall, 'solves_per_s': nsrc / wall,
-           'prep_s': t_prep, 'warmup_iters': iters0}
-    say('headline %s %d^2 x %d src: iters %d  relres %.3e  wall %.3f s  '
-        '%.3f solves/s  (prep %.2f s; card %s)'
-        % (medium, n, nsrc, iters, relres, wall, nsrc / wall, t_prep,
-           card))
+    out = {'medium': medium, 'config': cname, 'n': n, 'nsrc': nsrc,
+           'iters': iters, 'relres': relres, 'wall_s': wall,
+           'solves_per_s': nsrc / wall, 'prep_s': t_prep,
+           'warmup_iters': iters0, 'peak_gb': peak_gb()}
+    say('headline %s %s %d^2 x %d src: iters %d  relres %.3e  wall %.3f s'
+        '  %.3f solves/s  (prep %.2f s; peak %.2f GB; card %s)'
+        % (medium, cname, n, nsrc, iters, relres, wall, nsrc / wall,
+           t_prep, out['peak_gb'], card))
 
     if medium == 'hom':
         # interior-window oracle of one source outside the window
@@ -348,10 +400,188 @@ def headline(n, nsrc, medium, card):
         err = float(torch.sqrt(torch.sum(torch.abs(rel) ** 2))
                     / rel.numel())
         out['oracle_error'] = err
-        say('headline hom %d^2 oracle error %.3e (limit 1e-2; 1 source, '
-            '%d iters, relres %.3e)' % (n, err, it0, rr0))
+        say('headline hom %s %d^2 oracle error %.3e (limit 1e-2; 1 '
+            'source, %d iters, relres %.3e)' % (cname, n, err, it0, rr0))
         if not err < 1e-2:
             fail('headline oracle error %.3e >= 1e-2' % err)
+    return out
+
+
+# --- phase 7 -------------------------------------------------------------
+
+def peak_gb():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def reset_peak():
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def fwi_gradient(n, nsrc, nfreq, card):
+    '''
+    Phase 7a: the bench's gradient row (bench.py:590-629) through the
+    port: fwi_misfit_grad_chunked on the layered model, zero observed
+    data, grids by targetGPW 16, the production config, chunk 16.
+    '''
+    from zephyr_tpu_torch.parallel import fwi_misfit_grad_chunked
+    from zephyr_tpu_torch.solver.helmholtz import SolverConfig
+    c = layered_c(n).astype(np.float64)
+    rho = np.ones((n, n))
+    freqs = np.linspace(0.6, 1.0, nfreq) * (1500.0 / 16)
+    rng = np.random.default_rng(2)
+    src_pos = rng.integers(n // 8, 7 * n // 8,
+                           size=(nsrc, 2)).astype(np.float64)
+    nrec = 64
+    rx = np.linspace(n // 8, 7 * n // 8, nrec)
+    rec_pos = np.stack([rx, np.full(nrec, float(n // 8))], axis=1)
+    dobs = np.zeros((nfreq, nsrc, nrec), np.complex64)
+    stats = {}
+    reset_peak()
+    t0 = time.perf_counter()
+    misfit, grad = fwi_misfit_grad_chunked(
+        c, rho, freqs, None, None, dobs, config=SolverConfig(**PRODUCTION),
+        chunk=16, target_gpw=16, src_pos=src_pos, rec_pos=rec_pos,
+        cmin=1500.0, device=DEV, stats=stats)
+    wall = time.perf_counter() - t0
+    gnorm = float(np.linalg.norm(grad))
+    out = {'n': n, 'nsrc': nsrc, 'nfreq': nfreq, 'wall_s': wall,
+           'misfit': float(misfit), 'grad_norm': gnorm,
+           'grids': sorted(set(stats['shapes'])),
+           'iters_fwd_adj': [(it_f, it_a) for _, _, it_f, it_a
+                             in stats['iters']],
+           'phase_s': stats['seconds'], 'peak_gb': peak_gb()}
+    say('gradient %d^2 layered x %d src x %d freq: wall %.3f s  misfit '
+        '%.6e  |grad| %.6e  peak %.2f GB  (card %s)'
+        % (n, nsrc, nfreq, wall, misfit, gnorm, out['peak_gb'], card))
+    say('  grids %s; (forward, adjoint) iterations per frequency %s'
+        % (out['grids'], out['iters_fwd_adj']))
+    say('  host seconds by phase %s' % json.dumps(out['phase_s']))
+    if not (np.isfinite(misfit) and np.isfinite(grad).all() and gnorm > 0):
+        fail('gradient: misfit %r, finite %s, |grad| %r'
+             % (misfit, np.isfinite(grad).all(), gnorm))
+    return out
+
+
+def solve_backward(n, nsrc, card):
+    '''
+    Phase 7b: the backward of solve at n^2 hom x nsrc point sources with
+    the production config: L = sum |x|^2, dL/dc through the implicit
+    adjoint (one transpose solve, the 'mult' transpose preconditioner
+    with K7) and the plane construction.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
+    from zephyr_tpu_torch.solver.helmholtz import (
+        SolverConfig, prepare_operator, shifted_velocity, solve_batched)
+    cfg = SolverConfig(**PRODUCTION)
+    freq = 1500.0 / 16
+    c = torch.full((n, n), 1500.0, dtype=torch.float32, device=DEV,
+                   requires_grad=True)
+    rho = torch.ones((n, n), dtype=torch.float32, device=DEV)
+    rng = np.random.default_rng(0)
+    pos = rng.integers(n // 8, 7 * n // 8, size=(nsrc, 2))
+    b = torch.zeros((nsrc, 1, n, n), dtype=torch.complex64, device=DEV)
+    b[torch.arange(nsrc), 0, torch.as_tensor(pos[:, 0]),
+      torch.as_tensor(pos[:, 1])] = 1.0
+    reset_peak()
+    t0 = time.perf_counter()
+    cc = c.to(torch.complex64)
+    planes = minizephyr_planes(cc, rho, freq)[None, None]
+    pplanes = minizephyr_planes(shifted_velocity(cc.detach(), cfg.shift),
+                                rho, freq, pml_cap=cfg.pml_cap)[None, None]
+    op = prepare_operator(planes, pplanes, cfg)
+    x = solve_batched(op, b, cfg)
+    loss = torch.sum(torch.abs(x) ** 2)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g, = torch.autograd.grad(loss, c)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    gnorm = float(torch.linalg.norm(g))
+    out = {'n': n, 'nsrc': nsrc, 'forward_s': t_fwd, 'backward_s': t_bwd,
+           'grad_norm': gnorm, 'peak_gb': peak_gb()}
+    say('solve backward %d^2 hom x %d src: forward (prep + solve) %.3f s  '
+        'backward %.3f s  |grad| %.6e  peak %.2f GB  (card %s)'
+        % (n, nsrc, t_fwd, t_bwd, gnorm, out['peak_gb'], card))
+    if not (np.isfinite(gnorm) and gnorm > 0):
+        fail('solve backward: |grad| %r' % gnorm)
+    return out
+
+
+def gradient_agreement(n, nsrc, nrec, card, limit=1e-3):
+    '''
+    Phase 7c: at n^2 layered, one frequency, the production config, the
+    misfit gradient w.r.t. c by autograd through solve against
+    fwi_misfit_grad_chunked on the same sources, receivers and data.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
+    from zephyr_tpu_torch.parallel import fwi_misfit_grad_chunked
+    from zephyr_tpu_torch.parallel.multifreq import _kaiser_stamps
+    from zephyr_tpu_torch.solver.helmholtz import (
+        SolverConfig, prepare_operator, shifted_velocity, solve_batched)
+    cfg = SolverConfig(**PRODUCTION)
+    freq = 1500.0 / 16
+    c = layered_c(n).astype(np.float64)
+    rng = np.random.default_rng(4)
+    src_pos = rng.uniform(n // 8, 7 * n // 8, size=(nsrc, 2))
+    rec_pos = np.stack([np.linspace(n // 8, 7 * n // 8, nrec),
+                        np.full(nrec, float(n // 8))], axis=1)
+    scols, svals = _kaiser_stamps((n, n), 1.0, 1.0, src_pos, 4)
+    rcols, rvals = _kaiser_stamps((n, n), 1.0, 1.0, rec_pos, 4,
+                                  receiver=True)
+    q = np.zeros((1, nsrc, n * n), np.complex64)
+    np.add.at(q[0], (np.arange(nsrc)[:, None], scols), svals)
+    R = np.zeros((nrec, n * n), np.complex64)
+    np.add.at(R, (np.arange(nrec)[:, None], rcols), rvals)
+    dobs = (0.01 * (rng.standard_normal((1, nsrc, nrec))
+                    + 1j * rng.standard_normal((1, nsrc, nrec)))
+            ).astype(np.complex64)
+    q = q.reshape(1, nsrc, n, n)
+
+    reset_peak()
+    t0 = time.perf_counter()
+    m_ch, g_ch = fwi_misfit_grad_chunked(
+        c, np.ones((n, n)), np.array([freq]), q, R, dobs, config=cfg,
+        chunk=nsrc, device=DEV)
+    t_ch = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ct = torch.as_tensor(c, dtype=torch.float32, device=DEV)
+    ct.requires_grad_(True)
+    rho = torch.ones((n, n), dtype=torch.float32, device=DEV)
+    cc = ct.to(torch.complex64)
+    planes = minizephyr_planes(cc, rho, freq)[None, None]
+    pplanes = minizephyr_planes(shifted_velocity(cc.detach(), cfg.shift),
+                                rho, freq, pml_cap=cfg.pml_cap)[None, None]
+    op = prepare_operator(planes, pplanes, cfg)
+    b = torch.as_tensor(q[0][:, None], device=DEV)
+    x = solve_batched(op, b, cfg)
+    u = torch.conj(x[:, 0].reshape(nsrc, -1))
+    r = u @ torch.as_tensor(R, device=DEV).T - torch.as_tensor(dobs[0],
+                                                              device=DEV)
+    loss = 0.5 * torch.sum(torch.abs(r) ** 2)
+    g_ad, = torch.autograd.grad(loss, ct)
+    g_ad = g_ad.cpu().numpy()
+    t_ad = time.perf_counter() - t0
+    diff = float(np.max(np.abs(g_ad - g_ch)) / np.max(np.abs(g_ch)))
+    mis_diff = abs(float(loss.detach()) - m_ch) / m_ch
+    out = {'n': n, 'nsrc': nsrc, 'nrec': nrec, 'max_rel_diff': diff,
+           'misfit_rel_diff': mis_diff, 'chunked_s': t_ch,
+           'autograd_s': t_ad, 'peak_gb': peak_gb()}
+    say('gradient agreement %d^2 layered, 1 freq, %d src, %d rec: '
+        'max|g_solve - g_chunked| / max|g_chunked| %.3e (limit %.0e), '
+        'misfit rel diff %.3e; chunked %.2f s, autograd %.2f s; peak %.2f '
+        'GB (card %s)' % (n, nsrc, nrec, diff, limit, mis_diff, t_ch, t_ad,
+                          out['peak_gb'], card))
+    if not diff <= limit:
+        fail('autograd and chunked gradients differ by %.3e > %.0e'
+             % (diff, limit))
     return out
 
 
@@ -391,19 +621,26 @@ def main():
     say('phase 3: kernels against their torch twins (complex64, card)')
     kres = check_kernels()
 
-    # phases 4-5 on the main path, with the launch counts reset
+    # phases 4-7 on the main paths, with the launch counts reset
     ck.reset_launches()
     oracle_flow()
+    oracle_flow(None)
     runs = [headline(2048, 16, 'hom', card),
-            headline(2048, 16, 'layered', card)]
+            headline(2048, 16, 'layered', card),
+            headline(2048, 16, 'hom', card, opts=None)]
+    grads = {'fwi': fwi_gradient(2048, 16, 8, card),
+             'solve_backward': solve_backward(2048, 16, card),
+             'agreement': gradient_agreement(512, 8, 32, card)}
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
 
     # phase 6
-    say('launches over phases 4-5: %s' % json.dumps(launches))
+    say('launches over phases 4-7: %s' % json.dumps(launches))
     for name, count in launches.items():
         if count == 0:
             fail('kernel %s was never launched on the main path' % name)
+    for key in sorted(k for k in kres if k not in KERNELS):
+        say('%s: %s' % (key, json.dumps(kres[key])))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():
@@ -414,6 +651,7 @@ def main():
                         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                         'plain_ms': r['plain_ms']})
     say(json.dumps({'runs': runs, 'card': card}))
+    say(json.dumps({'gradients': grads, 'card': card}))
     say(json.dumps({'kernels': kernels}))
     say(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -1,8 +1,9 @@
 '''
-The CUDA kernels K1-K4 against their torch twins, on the card, complex64,
-at small and odd shapes (chip_smoke.py runs the same checks at the main
-path's shapes). Marked ``cuda``: without an NVIDIA GPU and nvcc they
-skip. On a machine with one:
+The CUDA kernels K1-K5 and K7 against their torch twins, on the card,
+complex64, at small and odd shapes (chip_smoke.py runs the same checks
+at the main path's shapes). Marked ``cuda``: without an NVIDIA GPU and
+nvcc they skip. On a machine with one (where jax is not installed, add
+``--noconftest``):
 
     python -m pytest tests/test_torch_kernels.py -q
 
@@ -15,7 +16,7 @@ import torch
 
 from zephyr_tpu_torch.ops import cuda_kernels as ck
 from zephyr_tpu_torch.ops import stencil
-from zephyr_tpu_torch.solver import stratified
+from zephyr_tpu_torch.solver import multigrid, stratified
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -63,6 +64,36 @@ def test_k1_k2_k4_match_twins(dev, nz, nx, R):
         assert _close(u_k, u_r) and _close(rc_k, rc_r)
     assert _close(ck.prolong_add_smooth(planes, D, mask, b, u, ec),
                   stencil._pas_ref(planes, D, mask, b, u, ec))
+
+
+@pytest.mark.parametrize('nz,nx,R', SHAPES)
+def test_k5_matches_twin(dev, nz, nx, R):
+    planes, D, _, b, u, _ = _operands(dev, nz, nx, R)
+    assert _close(ck.jacobi_sweep(planes, D, b, u),
+                  stencil._jacobi_ref(planes, D, b, u))
+
+
+@pytest.mark.parametrize('nz,nx,R', SHAPES + [(2, 7, 2), (1, 1, 1)])
+def test_k7_matches_twins(dev, nz, nx, R):
+    _, _, _, b, _, ec = _operands(dev, nz, nx, R)
+    assert _close(ck.restrict(b), multigrid._restrict_ref(b))
+    assert _close(ck.prolong(ec, nz, nx),
+                  multigrid._prolong_ref(ec, nz, nx))
+    # a crop of the interleaved grid below (2 nzc - 1, 2 nxc - 1)
+    assert _close(ck.prolong(ec, max(1, nz - 2), nx),
+                  multigrid._prolong_ref(ec, max(1, nz - 2), nx))
+
+
+def test_transfer_dispatch_reshapes_leading_axes(dev):
+    _, _, _, b, _, ec = _operands(dev, 12, 9, 3)
+    v = b.reshape(3, 1, 12, 9)
+    assert _close(multigrid.restrict(v),
+                  multigrid._restrict_ref(v))
+    vc = ec.reshape(3, 1, 6, 5)
+    assert _close(multigrid.prolong(vc, 12, 9),
+                  multigrid._prolong_ref(vc, 12, 9))
+    with pytest.raises(ValueError):
+        ck.prolong(ec, 13, 9)
 
 
 @pytest.mark.parametrize('nz,nx,R', [(37, 29, 2), (64, 40, 3), (3, 5, 1)])

@@ -13,6 +13,7 @@ The port's forward-modelling API against the JAX package and the oracle:
 '''
 
 import os
+import re
 import subprocess
 import sys
 
@@ -95,9 +96,11 @@ def test_factors_lifecycle_and_config():
                           'dtype': 'complex64'}).solverConfig.tol == 1e-5
     with pytest.raises(ValueError, match='freq'):
         tb.MiniZephyr({'c': 2500., 'nx': 8, 'nz': 8})
-    # the default SolverConfig needs kernel K5: it raises, on any device
-    with pytest.raises(NotImplementedError, match='K5'):
-        tb.MiniZephyr({'c': 2500., 'nx': 40, 'nz': 48, 'freq': 150.}).Ainv
+    # the default SolverConfig ('mult', full-resolution stratified solve,
+    # LU coarse solve) prepares a forward-only operator
+    op = tb.MiniZephyr({'c': 2500., 'nx': 40, 'nz': 48, 'freq': 150.}).Ainv
+    assert op.strat.ldu.shape[-2:] == (48, 40) and op.cplanes is None
+    assert op.hier.coarse_lu is not None and op.hierT is None
 
 
 def test_complex64_cpu_solve_close_to_complex128():
@@ -162,13 +165,24 @@ def test_analytical_oracle_parity(extra):
 def test_import_loads_no_jax():
     code = ('import sys; import zephyr_tpu_torch, zephyr_tpu_torch.backend, '
             'zephyr_tpu_torch.solver, zephyr_tpu_torch.convert, '
-            'zephyr_tpu_torch.ops.cuda_kernels; '
+            'zephyr_tpu_torch.parallel, zephyr_tpu_torch.ops.cuda_kernels; '
             'assert "jax" not in sys.modules; '
             'assert "zephyr_tpu" not in sys.modules; print("ok")')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == 'ok'
+    # no source of the port, nor chip_smoke.py, names jax or the JAX
+    # package in an import
+    bad = re.compile(r'^\s*(import|from)\s+(jax\b|zephyr_tpu\b(?!_torch))',
+                     re.M)
+    pkg = os.path.join(REPO, 'zephyr_tpu_torch')
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith('.py')] + [os.path.join(REPO, 'chip_smoke.py')]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as fh:
+            assert not bad.search(fh.read()), path
 
 
 def test_cpu_dispatch_runs_the_twins():

@@ -84,8 +84,8 @@ def test_v_cycle_parity(hiers, coarse):
 def test_unported_smoothing_raises(hiers):
     _, ht = hiers['inv']
     b = torch.zeros((1, 1, NZ, NX), dtype=torch.complex128)
-    with pytest.raises(NotImplementedError, match='K5'):
-        tmg.v_cycle(ht, b, nu2=2)
+    with pytest.raises(NotImplementedError, match='K6'):
+        tmg.v_cycle(ht, b, nu2=3)
     with pytest.raises(NotImplementedError, match='K6'):
         tmg.v_cycle(ht, b, nu1=3)
     with pytest.raises(NotImplementedError, match='TTI'):

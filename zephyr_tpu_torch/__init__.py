@@ -9,12 +9,13 @@ the same path:
 - zephyr_tpu_torch.ops      — coefficient-plane builders, stencil algebra
                               and its torch twins, the CUDA kernel loader
 - zephyr_tpu_torch.solver   — multigrid, stratified PCR, BiCGStab and the
-                              fused hybrid Helmholtz solve
+                              hybrid Helmholtz solve, differentiable
 - zephyr_tpu_torch.backend  — forward modelling (MiniZephyr, sources, the
-                              analytical oracle)
+                              analytical oracle, grid interpolation)
+- zephyr_tpu_torch.parallel — the chunked adjoint-state FWI gradient
 - zephyr_tpu_torch.convert  — the JAX package's prepared state into the
                               port's
-- zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K4 (sm_90a)
+- zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K5 and K7 (sm_90a)
 
 The port imports torch, numpy and scipy, never jax.
 '''

@@ -9,3 +9,5 @@ from .minizephyr import MiniZephyr, MiniZephyrHD
 from .source import (BaseSource, SimpleSource, StackedSimpleSource,
                      SparseKaiserSource, HC_KAISER)
 from .analytical import AnalyticalHelmholtz
+from .interpolation import (BaseGridInterpolator, SplineGridInterpolator,
+                            resample_field)

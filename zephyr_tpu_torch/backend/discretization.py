@@ -145,7 +145,8 @@ class BaseDiscretization(BaseModelDependent):
             c, rho = self._fields()
             self._Ainv = prepare_operator(
                 self._planesFromFields(c, rho),
-                self._precondPlanesFromFields(c, rho), self.solverConfig)
+                self._precondPlanesFromFields(c, rho), self.solverConfig,
+                with_transpose=False)
         return self._Ainv
 
     @Ainv.deleter

@@ -56,11 +56,28 @@ class SimpleSource(BaseSource):
                - loc[:, 1].reshape((nsrc, 1, 1))) ** 2)
 
     def linIndexOf(self, loc):
-        'The linear index of the nearest gridpoint to each location.'
+        '''
+        The linear index of the nearest gridpoint to each location: the
+        first minimum of ``dist`` in row-major order. It is searched in a
+        5 x 5 window around the nearest row and column, which holds every
+        gridpoint within rounding of the minimum, with ``dist``'s own
+        arithmetic, so the (nsrc, nz, nx) distance array of a large grid
+        is never built.
+        '''
 
-        nsrc = np.asarray(loc).shape[0]
-        dists = self.dist(loc).reshape((nsrc, self.nrow))
-        return np.argmin(dists, axis=1)
+        loc = np.asarray(loc)
+        zs, xs = self._z[:, 0], self._x[0]
+        out = np.empty(loc.shape[0], dtype=np.intp)
+        for i, (lx, lz) in enumerate(loc[:, :2]):
+            iz = int(np.argmin(np.abs(zs - lz)))
+            ix = int(np.argmin(np.abs(xs - lx)))
+            z0, z1 = max(iz - 2, 0), min(iz + 3, self.nz)
+            x0, x1 = max(ix - 2, 0), min(ix + 3, self.nx)
+            d = np.sqrt((self._x[z0:z1, x0:x1] - lx) ** 2
+                        + (self._z[z0:z1, x0:x1] - lz) ** 2)
+            k = int(np.argmin(d))
+            out[i] = (z0 + k // (x1 - x0)) * self.nx + x0 + k % (x1 - x0)
+        return out
 
     def vecIndexOf(self, loc):
         'The (z, x) grid index of each source location.'

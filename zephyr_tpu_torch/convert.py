@@ -51,32 +51,39 @@ def _opt(a, device):
     return None if a is None else tensor_from_numpy(a, device)
 
 
-def operator_from_numpy(tree, device='cpu'):
-    '''
-    The port's HelmholtzOperator from a JAX HelmholtzOperator whose
-    leaves went through ``np.asarray``. The transpose parts (hierT,
-    planesT) are not carried: the port's operator is forward only. A
-    tree that needs an unported path raises NotImplementedError.
-    '''
-
-    if getattr(tree, 'fft_sinv', None) is not None:
-        raise NotImplementedError("operator_from_numpy: fft_mode='2d' "
-                                  'symbol solves are not ported')
-    h = tree.hier
+def _hier_from_numpy(h, device):
+    'The port\'s MGHierarchy from a JAX one with numpy leaves.'
+    if any(getattr(lv, 'linez', None) is not None for lv in h.levels):
+        raise NotImplementedError('operator_from_numpy: line-smoother '
+                                  '(TTI) levels are not ported')
     levels = tuple(
         MGLevel(tensor_from_numpy(lv.planes, device),
                 tensor_from_numpy(lv.dinv, device),
                 tensor_from_numpy(lv.mask, device))
         for lv in h.levels)
-    if any(getattr(lv, 'linez', None) is not None for lv in h.levels):
-        raise NotImplementedError('operator_from_numpy: line-smoother '
-                                  '(TTI) levels are not ported')
     piv = h.coarse_piv
     if piv is not None:
         # JAX's lu_factor pivots are 0-based; torch's (LAPACK) 1-based
         piv = np.asarray(piv).astype(np.int32) + 1
-    hier = MGHierarchy(levels, _opt(h.coarse_lu, device),
+    return MGHierarchy(levels, _opt(h.coarse_lu, device),
                        _opt(piv, device), _opt(h.coarse_inv, device))
+
+
+def operator_from_numpy(tree, device='cpu'):
+    '''
+    The port's HelmholtzOperator from a JAX HelmholtzOperator whose
+    leaves went through ``np.asarray``, the transposed hierarchy and
+    planes included when the JAX operator was prepared
+    ``with_transpose=True``. A tree that needs an unported path raises
+    NotImplementedError.
+    '''
+
+    if getattr(tree, 'fft_sinv', None) is not None:
+        raise NotImplementedError("operator_from_numpy: fft_mode='2d' "
+                                  'symbol solves are not ported')
+    hier = _hier_from_numpy(tree.hier, device)
+    hierT = (None if getattr(tree, 'hierT', None) is None
+             else _hier_from_numpy(tree.hierT, device))
     strat = None
     if tree.strat is not None:
         s = tree.strat
@@ -89,4 +96,5 @@ def operator_from_numpy(tree, device='cpu'):
                          tensor_from_numpy(s.dinv, device),
                          tensor_from_numpy(s.ldu, device))
     return HelmholtzOperator(tensor_from_numpy(tree.planes, device), hier,
-                             strat, _opt(tree.cplanes, device))
+                             strat, _opt(tree.cplanes, device), hierT,
+                             _opt(getattr(tree, 'planesT', None), device))

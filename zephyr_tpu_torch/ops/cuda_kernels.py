@@ -1,8 +1,9 @@
 '''
 Loader and wrappers of the hand-written CUDA kernels (``csrc/*.cu``).
 
-At first use the sources are compiled with ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into one shared library with
+At first use each source is compiled with ``nvcc`` for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per source, all
+started together, and the objects are linked into one shared library with
 a plain C interface, which is bound with ``ctypes``. The library goes
 into ``build/zephyr_tpu_torch_kernels/`` beside the package, under a name
 keyed by a hash of the sources, so an edited kernel is rebuilt and an
@@ -21,6 +22,8 @@ twins.
     K2 presmooth_restrict   csrc/k2_presmooth_restrict.cu
     K3 pcr_sweep            csrc/k3_pcr_sweep.cu
     K4 prolong_add_smooth   csrc/k4_prolong_add_smooth.cu
+    K5 jacobi_sweep         csrc/k5_jacobi_sweep.cu
+    K7 restrict, prolong    csrc/k7_transfer.cu
 '''
 
 import ctypes
@@ -38,14 +41,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'zephyr_tpu_torch_kernels'
 SOURCES = ('k1_apply_stencil.cu', 'k2_presmooth_restrict.cu',
-           'k3_pcr_sweep.cu', 'k4_prolong_add_smooth.cu')
+           'k3_pcr_sweep.cu', 'k4_prolong_add_smooth.cu',
+           'k5_jacobi_sweep.cu', 'k7_transfer.cu')
 HEADERS = ('zt_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 #: launches of each kernel since the last ``reset_launches()``
 LAUNCHES = {'apply_stencil': 0, 'presmooth_restrict': 0, 'pcr_sweep': 0,
-            'prolong_add_smooth': 0}
+            'prolong_add_smooth': 0, 'jacobi_sweep': 0, 'restrict': 0,
+            'prolong': 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -91,16 +96,34 @@ def build():
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix('.so.tmp%d' % os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = '%s.%d' % (so.stem, os.getpid())
+    objs = [BUILD_DIR / ('%s.%s.o' % (Path(s).stem, tag)) for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', '-o', str(o),
+                               str(CSRC / s)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    log, failed = '', []
+    for s, p in zip(SOURCES, procs):
+        out = p.communicate()[0]
+        log += '%s:\n%s' % (s, out)
+        if p.returncode != 0:
+            failed.append('%s (%d)' % (s, p.returncode))
+    tmp = so.with_suffix('.so.tmp%d' % os.getpid())
+    if not failed:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], '-shared', '-o',
+                               str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append('link (%d)' % proc.returncode)
+    for o in objs:
+        o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError('zephyr_tpu_torch: nvcc failed (%d):\n%s'
-                           % (proc.returncode, log))
+    if failed:
+        raise RuntimeError('zephyr_tpu_torch: nvcc failed: %s\n%s'
+                           % (', '.join(failed), log))
     os.replace(tmp, so)
     (BUILD_DIR / (so.stem + '.log')).write_text(log)
     build_info = (seconds, log)
@@ -119,6 +142,9 @@ def _load():
             'zt_presmooth_restrict': [P, P, P, P, P, P, I, I, I, I, P],
             'zt_pcr_sweep': [P, P, P, P, P, I, I, I, I, I, P],
             'zt_prolong_add_smooth': [P, P, P, P, P, P, P, I, I, I, P],
+            'zt_jacobi_sweep': [P, P, P, P, P, I, I, I, P],
+            'zt_restrict': [P, P, I, I, I, P],
+            'zt_prolong': [P, P, I, I, I, I, I, P],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -272,4 +298,70 @@ def prolong_add_smooth(planes, dinv_eff, mask, b, u, ec):
                 planes.data_ptr(), dinv_eff.data_ptr(), mask.data_ptr(),
                 b.data_ptr(), u.data_ptr(), ec.data_ptr(), out.data_ptr(),
                 R, nz, nx)
+    return out
+
+
+def jacobi_sweep(planes, dinv_eff, b, u):
+    '''
+    K5: one damped-Jacobi sweep u + dinv_eff (b - A u) for b, u
+    (R, nz, nx), planes (9, nz, nx) and dinv_eff (nz, nx), complex64.
+    '''
+
+    R, nz, nx = _field_dims(b)
+    dev = b.device
+    _check('b', b, torch.complex64, (R, nz, nx), dev)
+    _check('u', u, torch.complex64, (R, nz, nx), dev)
+    _check('planes', planes, torch.complex64, (9, nz, nx), dev)
+    _check('dinv_eff', dinv_eff, torch.complex64, (nz, nx), dev)
+    lib = _load()
+    out = torch.empty_like(b)
+    with torch.cuda.device(dev):
+        _launch('jacobi_sweep', lib.zt_jacobi_sweep, planes.data_ptr(),
+                dinv_eff.data_ptr(), b.data_ptr(), u.data_ptr(),
+                out.data_ptr(), R, nz, nx)
+    return out
+
+
+#: the most right-hand sides one K7 launch takes (its grid's z extent)
+MAX_TRANSFER_BATCH = 65535
+
+
+def restrict(v):
+    '''
+    K7: full-weighting restriction of v (R, nz, nx) complex64 to
+    (R, (nz+1)//2, (nx+1)//2).
+    '''
+
+    R, nz, nx = _field_dims(v)
+    _check('v', v, torch.complex64, (R, nz, nx), v.device)
+    if R > MAX_TRANSFER_BATCH:
+        raise ValueError('restrict: batch %d > %d' % (R, MAX_TRANSFER_BATCH))
+    lib = _load()
+    out = torch.empty((R, (nz + 1) // 2, (nx + 1) // 2), dtype=v.dtype,
+                      device=v.device)
+    with torch.cuda.device(v.device):
+        _launch('restrict', lib.zt_restrict, v.data_ptr(), out.data_ptr(),
+                R, nz, nx)
+    return out
+
+
+def prolong(vc, nz, nx):
+    '''
+    K7: bilinear prolongation of vc (R, nzc, nxc) complex64 onto the
+    (nz, nx) fine grid, nz <= 2 nzc and nx <= 2 nxc.
+    '''
+
+    R, nzc, nxc = _field_dims(vc)
+    _check('vc', vc, torch.complex64, (R, nzc, nxc), vc.device)
+    nz, nx = int(nz), int(nx)
+    if not (1 <= nz <= 2 * nzc and 1 <= nx <= 2 * nxc):
+        raise ValueError('prolong: (%d, %d) is not a fine grid of (%d, %d)'
+                         % (nz, nx, nzc, nxc))
+    if R > MAX_TRANSFER_BATCH:
+        raise ValueError('prolong: batch %d > %d' % (R, MAX_TRANSFER_BATCH))
+    lib = _load()
+    out = torch.empty((R, nz, nx), dtype=vc.dtype, device=vc.device)
+    with torch.cuda.device(vc.device):
+        _launch('prolong', lib.zt_prolong, vc.data_ptr(), out.data_ptr(),
+                R, nzc, nxc, nz, nx)
     return out

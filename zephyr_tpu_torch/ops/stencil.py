@@ -111,6 +111,43 @@ def apply_block_stencil(planes, u):
     return torch.stack(rows, dim=-3)
 
 
+def transpose_planes(planes):
+    '''
+    Coefficient planes of the transposed scalar operator.
+
+    A^T[r, r+s] = A[r+s, r] = P_{-s}[r+s], so the transposed plane for
+    offset s is the plane for -s shifted by +s (with zero fill).
+    '''
+
+    out = []
+    for dz, dx in OFFSETS:
+        krev = (1 - dz) * 3 + (1 - dx)  # index of offset (-dz, -dx)
+        out.append(shift2d(planes[krev], dz, dx))
+    return torch.stack(out, dim=0)
+
+
+def plane_products(w, x):
+    '''
+    G[k][i] = sum_r w_r[i] x_r[i + s_k] for w, x (R, nz, nx) ->
+    (9, nz, nx): the derivative of sum_r sum_i w_r[i] (A x_r)[i] w.r.t.
+    the planes of A, with w and x held fixed (zero outside the grid).
+    '''
+
+    return torch.stack([torch.sum(w * shift2d(x, dz, dx), dim=0)
+                        for dz, dx in OFFSETS])
+
+
+def transpose_block_planes(planes):
+    'Planes of the transposed block operator (swap blocks + per-block T).'
+
+    B = planes.shape[0]
+    rows = []
+    for i in range(B):
+        cols = [transpose_planes(planes[j, i]) for j in range(B)]
+        rows.append(torch.stack(cols, dim=0))
+    return torch.stack(rows, dim=0)
+
+
 def block_diag(planes):
     'The (B, B, nz, nx) pointwise block-diagonal (the CENTER plane).'
 
@@ -276,6 +313,18 @@ def apply_stencil_batched(planes, u):
     if _on_cpu(u):
         return apply_stencil(planes, u)
     return cuda_kernels.apply_stencil(planes, u)
+
+
+def jacobi_sweep_batched(planes, dinv_eff, b, u):
+    '''
+    K5: one damped-Jacobi sweep u + dinv_eff (b - A u) of a batch, b, u
+    (R, nz, nx) -> (R, nz, nx); planes (9, nz, nx) and dinv_eff (nz, nx)
+    shared across the batch.
+    '''
+
+    if _on_cpu(b):
+        return _jacobi_ref(planes, dinv_eff, b, u)
+    return cuda_kernels.jacobi_sweep(planes, dinv_eff, b, u)
 
 
 def presmooth_restrict_batched(planes, dinv_eff, mask, b, nsweeps):

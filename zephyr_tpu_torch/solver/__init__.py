@@ -1,11 +1,12 @@
 '''
-zephyr_tpu_torch solver: the fused hybrid (stratified PCR + multigrid)
-preconditioned BiCGStab Helmholtz solve.
+zephyr_tpu_torch solver: the hybrid (stratified PCR + multigrid)
+preconditioned BiCGStab Helmholtz solve, differentiable through its
+implicit adjoint.
 '''
 
 from .helmholtz import (SolverConfig, HelmholtzOperator, check_config,
                         prepare_operator, resolve_solver_config,
-                        resolve_panels, shifted_velocity, solve_batched,
-                        solve_info, make_chunked_solver)
+                        resolve_panels, shifted_velocity, solve,
+                        solve_batched, solve_info, make_chunked_solver)
 from .krylov import bicgstab
-from .multigrid import build_hierarchy, v_cycle
+from .multigrid import build_hierarchy, transpose_hierarchy, v_cycle

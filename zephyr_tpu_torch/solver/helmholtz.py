@@ -1,20 +1,33 @@
 '''
 The zephyr_tpu_torch Helmholtz solve: the port of
-``zephyr_tpu.solver.helmholtz`` for the forward scalar solve.
+``zephyr_tpu.solver.helmholtz`` for scalar operators.
 
 A prepared operator (``prepare_operator``) holds the coefficient planes,
 the multigrid hierarchy of the complex-shifted operator, the precomputed
-stratified interior solve and the Galerkin-coarsened true planes. The
-solve is BiCGStab preconditioned by the fused hybrid cycle
-(``hybrid_comp='fused'``): fine pre-smooth and restrict (K2), the
-stratified PCR interior solve at half resolution (cuFFT + K3), the
-half-grid true-operator residual (K1), a V-cycle from level 1 (K2/K4 per
-level, a dense inverse at the coarsest), and the fine upstroke (K4).
-``precond='mg'`` (one V-cycle) is the other supported preconditioner.
+stratified interior solve, the Galerkin-coarsened true planes and, with
+``with_transpose=True``, the transposed planes and hierarchy. The solve
+is BiCGStab preconditioned by one of:
 
-Configurations whose path needs a kernel that is not ported yet raise
-NotImplementedError naming it, on every device; gradients (``solve`` as
-an autograd Function) are not ported yet.
+- the fused hybrid cycle (``hybrid_comp='fused'``, ``fft_scale=2``): fine
+  pre-smooth and restrict (K2), the stratified PCR interior solve at half
+  resolution (cuFFT + K3), the half-grid true-operator residual (K1), a
+  V-cycle from level 1 (K2/K4 per level, a dense inverse or LU at the
+  coarsest), and the fine upstroke (K4);
+- the multiplicative hybrid (``hybrid_comp='mult'``, the default
+  SolverConfig): the stratified solve P at full resolution
+  (``fft_scale=1``) or between the transfer operators (K7) at half
+  resolution, the residual against the true operator (K1) and one
+  V-cycle (K2, K4 and at ``mg_nu2=2`` K5 per level);
+- one V-cycle (``precond='mg'``).
+
+``solve``/``solve_batched`` are differentiable (``torch.autograd``) with
+respect to the planes and the right-hand side, as
+``lax.custom_linear_solve`` makes them in the JAX package: the backward
+runs one transpose solve with the transpose preconditioner (the fused
+cycle falls back to 'mult' there, which runs K7).
+
+Configurations whose path needs a part that is not ported yet raise
+NotImplementedError naming it, on every device.
 '''
 
 from typing import NamedTuple, Any
@@ -22,12 +35,15 @@ from typing import NamedTuple, Any
 import numpy as np
 import torch
 
-from ..ops.stencil import apply_block_stencil_fast
+from ..ops.stencil import (apply_block_stencil_fast, plane_products,
+                           transpose_block_planes)
 from .krylov import bicgstab, _norm
 from .multigrid import (build_hierarchy, v_cycle, presmooth_restrict,
                         prolong_add_smooth, _mask_ring_planes, _ring_mask,
-                        _fix_empty_rows, galerkin_coarsen)
-from .stratified import stratified_coeffs, pcr_precompute, stratified_apply
+                        _fix_empty_rows, galerkin_coarsen, restrict, prolong,
+                        transpose_hierarchy)
+from .stratified import (stratified_coeffs, pcr_precompute, stratified_apply,
+                         transpose_pcr)
 
 
 class SolverConfig(NamedTuple):
@@ -84,11 +100,12 @@ def check_config(config, block_size=1):
            "'lu' coarse solves")
     if config.mg_nu1 not in (1, 2):
         no('mg_nu1=%d' % config.mg_nu1, 'the downstroke kernel K2 takes 1 '
-           'or 2 sweeps; more need K6 (ROADMAP Queue 2)')
-    if config.mg_nu2 != 1:
-        no('mg_nu2=%d' % config.mg_nu2, 'the upstroke kernel K4 carries '
-           'one sweep; more need K5/K6 (ROADMAP Queue 2: K5 and the '
-           'default SolverConfig path)')
+           'or 2 sweeps; more need the two-sweep kernel K6 (ROADMAP Queue '
+           '2); zero sweeps are not ported')
+    if config.mg_nu2 not in (1, 2):
+        no('mg_nu2=%d' % config.mg_nu2, 'the upstroke runs K4 and at most '
+           'one K5 sweep; more need the two-sweep kernel K6 (ROADMAP '
+           'Queue 2); zero sweeps are not ported')
     if config.precond == 'mg':
         return
     if config.precond != 'hybrid':
@@ -96,11 +113,12 @@ def check_config(config, block_size=1):
     if config.fft_mode != 'strat':
         no('fft_mode=%r' % (config.fft_mode,), 'the 2D-FFT symbol solve '
            'is not ported yet')
-    if config.hybrid_comp != 'fused' or config.fft_scale != 2:
-        no('hybrid_comp=%r, fft_scale=%r' % (config.hybrid_comp,
-                                             config.fft_scale),
-           "the port runs hybrid_comp='fused' with fft_scale=2; "
-           "'mult'/'add' need the standalone transfer kernel K7")
+    if config.hybrid_comp not in ('fused', 'mult'):
+        no('hybrid_comp=%r' % (config.hybrid_comp,), "the additive "
+           "composition is not ported yet; use 'fused' or 'mult'")
+    if config.fft_scale not in (1, 2):
+        no('fft_scale=%r' % (config.fft_scale,), 'the spectral solve runs '
+           'at full (1) or half (2) resolution')
     if config.strat_panels > 1:
         no('strat_panels=%d' % config.strat_panels, 'the x-panel family '
            'is not ported yet (ROADMAP Queue 1: x-panels)')
@@ -162,25 +180,33 @@ def shifted_velocity(c, shift=0.5j):
 
 class HelmholtzOperator(NamedTuple):
     '''
-    A prepared forward Helmholtz system: coefficient planes, the
-    multigrid hierarchy of the shifted operator, the stratified interior
-    solve (hybrid preconditioner) and the Galerkin-coarsened true planes
-    (the fused cycle's level-1 residual operator).
+    A prepared Helmholtz system: coefficient planes, the multigrid
+    hierarchy of the shifted operator, the stratified interior solve
+    (precond='hybrid'), the Galerkin-coarsened true planes (the fused
+    cycle's level-1 residual operator) and, for transpose solves, the
+    transposed hierarchy and planes.
     '''
 
     planes: Any            # (B, B, 9, nz, nx)
     hier: Any              # MGHierarchy of the shifted operator
     strat: Any = None      # StratPCR (precond='hybrid')
-    cplanes: Any = None    # (B, B, 9, nzc, nxc)
+    cplanes: Any = None    # (B, B, 9, nzc, nxc) (hybrid_comp='fused')
+    hierT: Any = None      # MGHierarchy of the transposed shifted operator
+    planesT: Any = None    # (B, B, 9, nz, nx) transposed true planes
 
 
-def prepare_operator(planes, precond_planes=None, config=SolverConfig()):
+def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
+                     with_transpose=True):
     '''
     Build a HelmholtzOperator from true planes and the planes of the
     complex-shifted operator (default: the true planes). The multigrid
     hierarchy comes from the shifted planes; the hybrid preconditioner's
-    stratified solve is built from the Galerkin-coarsened true and
-    shifted operators (fft_scale=2).
+    stratified solve is built from the fine true and shifted planes
+    (fft_scale=1) or from their Galerkin-coarsened operators
+    (fft_scale=2). ``with_transpose`` adds the transposed hierarchy and
+    planes that the backward of ``solve`` needs. Everything but the
+    planes themselves is built from detached tensors: the preconditioner
+    takes no part in differentiation.
     '''
 
     check_config(config, planes.shape[0])
@@ -190,56 +216,164 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig()):
     tp = planes.detach()
     hier = build_hierarchy(pp, min_size=config.mg_min_size,
                            coarse=config.mg_coarse)
+    hierT = transpose_hierarchy(hier) if with_transpose else None
     if config.precond == 'mg':
-        return HelmholtzOperator(planes, hier)
-    if len(hier.levels) < 2:
-        raise NotImplementedError(
-            'the fused hybrid cycle needs a second multigrid level: the '
-            'grid is already at mg_min_size, where the JAX package falls '
-            "back to the unported 'mult' composition")
+        return HelmholtzOperator(planes, hier, hierT=hierT)
 
-    nz, nx = tp.shape[-2:]
-    mask = _ring_mask(nz, nx, tp.real.dtype, tp.device)
-    ctrue = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(tp, mask)))
-    cpp = hier.levels[1].planes
-    l, d, u = stratified_coeffs(ctrue, cpp, config.shift, config.fft_shift)
+    ctrue = None
+    if config.fft_scale > 1 or config.hybrid_comp == 'fused':
+        nz, nx = tp.shape[-2:]
+        mask = _ring_mask(nz, nx, tp.real.dtype, tp.device)
+        ctrue = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(tp,
+                                                                   mask)))
+        if len(hier.levels) > 1:
+            cpp = hier.levels[1].planes
+        else:
+            cpp = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(pp,
+                                                                     mask)))
+    if config.fft_scale > 1:
+        src_true, src_pp = ctrue, cpp
+    else:
+        src_true, src_pp = tp, pp
+    l, d, u = stratified_coeffs(src_true, src_pp, config.shift,
+                                config.fft_shift)
     strat = pcr_precompute(l, d, u)
-    return HelmholtzOperator(planes, hier, strat, ctrue)
+    planesT = transpose_block_planes(tp) if with_transpose else None
+    cplanes = ctrue if config.hybrid_comp == 'fused' else None
+    return HelmholtzOperator(planes, hier, strat, cplanes, hierT, planesT)
 
 
-def _make_precond(op, config):
+def _make_precond(op, config, transpose=False):
     '''
     The preconditioner application r -> M r on a batch (R, 1, nz, nx).
 
     'mg': one V-cycle on the shifted hierarchy.
-    'hybrid' (fused): ONE cycle in which the stratified PCR interior
-        solve is the level-1 coarse-grid boost — fine pre-smooth and
-        restricted residual, xc = P rc, the residual against the
+    'hybrid', hybrid_comp='fused' (forward, two or more levels, spectral
+        solve at half resolution): ONE cycle in which the stratified PCR
+        interior solve is the level-1 coarse-grid boost — fine pre-smooth
+        and restricted residual, xc = P rc, the residual against the
         Galerkin-coarsened TRUE operator, a V-cycle from level 1, then
         prolong, add and the fine post-smooth.
+    'hybrid', otherwise ('mult'): M r = P r + V (r - A P r), with P the
+        stratified solve at full resolution or, at fft_scale=2,
+        mask P_2h S_c R_2h mask between the transfer operators (K7).
+
+    With ``transpose=True`` the same construction from the transposed
+    parts, P^T + V^T (I - A^T P^T): a preconditioner FOR the transposed
+    operator (the JAX package's choice; the fused cycle falls back to
+    'mult'). P^T = F T^{-T} F^{-1}, the transposed tridiagonal family
+    reduced once here in full precision.
     '''
 
     check_config(config, op.planes.shape[0])
-    hier = op.hier
+    hier = op.hierT if transpose else op.hier
+    if hier is None:
+        raise ValueError('operator was prepared with with_transpose=False: '
+                         'it has no transpose preconditioner')
     omega, nu1, nu2 = config.mg_omega, config.mg_nu1, config.mg_nu2
+
+    def mg(r):
+        return v_cycle(hier, r, omega=omega, nu1=nu1, nu2=nu2)
+
     if config.precond == 'mg' or op.strat is None:
         if config.precond != 'mg':
             raise ValueError("operator was prepared without the hybrid "
                              "solve; use precond='mg'")
-        return lambda r: v_cycle(hier, r, omega=omega, nu1=nu1, nu2=nu2)
+        return mg
 
-    lvl0 = hier.levels[0]
-    cpl = op.cplanes
+    planes = (op.planesT if transpose else op.planes).detach()
+    strat = transpose_pcr(op.strat) if transpose else op.strat
+
+    def P0(r):
+        return stratified_apply(strat, r, transpose=transpose)
+
+    spec_nz = op.strat.ldu.shape[-2]
+    nzf, nxf = planes.shape[-2:]
+    if (config.hybrid_comp == 'fused' and not transpose
+            and op.cplanes is not None and len(hier.levels) > 1
+            and spec_nz != nzf):
+        lvl0 = hier.levels[0]
+        cpl = op.cplanes
+
+        def M(r):
+            u, rc = presmooth_restrict(lvl0, r, omega, nu1)
+            xc = P0(rc)
+            rc2 = rc - apply_block_stencil_fast(cpl, xc)
+            xc = xc + v_cycle(hier, rc2, omega=omega, nu1=nu1, nu2=nu2,
+                              level=1)
+            return prolong_add_smooth(lvl0, u, r, xc, omega, nu2)
+
+        return M
+
+    if spec_nz == nzf:
+        P = P0
+    else:
+        # the reduced-resolution spectral solve: Q = P_2h S_c R_2h, whose
+        # transpose is P_2h S_c^T R_2h because R = (1/4) P^T exactly
+        maskP = hier.levels[0].mask
+
+        def P(r):
+            return maskP * prolong(P0(restrict(maskP * r)), nzf, nxf)
 
     def M(r):
-        u, rc = presmooth_restrict(lvl0, r, omega, nu1)
-        xc = stratified_apply(op.strat, rc)
-        rc2 = rc - apply_block_stencil_fast(cpl, xc)
-        xc = xc + v_cycle(hier, rc2, omega=omega, nu1=nu1, nu2=nu2,
-                          level=1)
-        return prolong_add_smooth(lvl0, u, r, xc, omega, nu2)
+        x1 = P(r)
+        r2 = r - apply_block_stencil_fast(planes, x1)
+        return x1 + mg(r2)
 
     return M
+
+
+class _LinearSolve(torch.autograd.Function):
+    '''
+    x = A(planes)^{-1} b by preconditioned BiCGStab, with the implicit
+    adjoint of ``lax.custom_linear_solve``. Torch hands the backward
+    g = dL/d conj(x); the cotangent of b is w = A^{-H} g =
+    conj(A^{-T} conj(g)), one transpose solve with the transpose
+    preconditioner, and that of the planes is
+    -sum_r w_r[i] conj(x_r[i + s_k]).
+    '''
+
+    @staticmethod
+    def forward(ctx, planes, b, op, config):
+        x = solve_info(op, b, config)[0]
+        ctx.op, ctx.config = op, config
+        ctx.save_for_backward(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        op, config = ctx.op, ctx.config
+        MT = _make_precond(op, config, transpose=True)
+        planesT = transpose_block_planes(op.planes.detach())
+        # conj_physical: the kernels read raw memory, never a conj view
+        w = bicgstab(lambda v: apply_block_stencil_fast(planesT, v),
+                     g.conj_physical(), M=MT, tol=config.tol,
+                     maxiter=config.maxiter).x.conj_physical()
+        gp = None
+        if ctx.needs_input_grad[0]:
+            gp = -plane_products(w[:, 0], x[:, 0].conj())[None, None]
+        gb = w if ctx.needs_input_grad[1] else None
+        return gp, gb, None, None
+
+
+def solve_batched(op, b, config=SolverConfig()):
+    '''
+    Solve A x = b for a batch b (R, B, nz, nx) to ``config.tol``;
+    differentiable with respect to ``op.planes`` and ``b`` (the backward
+    needs an operator prepared ``with_transpose=True``).
+    '''
+
+    return _LinearSolve.apply(op.planes, b, op, config)
+
+
+def solve(op, b, config=SolverConfig()):
+    '''
+    Solve A x = b for a single right-hand side b (B, nz, nx), with
+    implicit differentiation (see ``solve_batched``).
+    '''
+
+    return solve_batched(op, b[None], config)[0]
 
 
 def solve_info(op, b, config=SolverConfig()):
@@ -255,12 +389,6 @@ def solve_info(op, b, config=SolverConfig()):
     M = _make_precond(op, config)
     res = bicgstab(mv, b, M=M, tol=config.tol, maxiter=config.maxiter)
     return res.x, res.iters, res.relres
-
-
-def solve_batched(op, b, config=SolverConfig()):
-    'Forward solve of a batch b (R, B, nz, nx); returns x.'
-
-    return solve_info(op, b, config)[0]
 
 
 def make_chunked_solver(config=SolverConfig(), chunk=64):

@@ -7,7 +7,11 @@ The port of ``zephyr_tpu.solver.multigrid`` for scalar (B=1) operators:
   (full-weighting restriction, bilinear prolongation), which stays within
   the 9-point stencil class;
 - damped Jacobi smoothing, fused into the level's downstroke (kernel K2)
-  and upstroke (kernel K4);
+  and upstroke (kernel K4), with a second post-smoothing sweep (K5) at
+  nu2 = 2;
+- standalone full-weighting restriction and bilinear prolongation
+  (kernel K7) for the reduced-resolution spectral solve;
+- the hierarchy of the transposed operator (``transpose_hierarchy``);
 - the coarsest level solved directly with a dense inverse (one matmul)
   or dense LU factors, computed once at preparation time.
 
@@ -19,7 +23,7 @@ from typing import NamedTuple, Any
 
 import torch
 
-from ..ops import stencil
+from ..ops import cuda_kernels, stencil
 from ..ops.stencil import (block_diag, invert_block_diag,
                            planes_to_dense_torch, shift2d)
 
@@ -122,6 +126,35 @@ def _prolong_ref(vc, nz, nx):
     out = zz + 0.5 * (shift2d(zz, 1, 0) + shift2d(zz, -1, 0))
     out = out + 0.5 * (shift2d(out, 0, 1) + shift2d(out, 0, -1))
     return out[..., :nz, :nx]
+
+
+def _flat_batch(v):
+    '(..., nz, nx) -> (N, nz, nx) contiguous, for a batched kernel.'
+    return v.reshape((-1,) + tuple(v.shape[-2:])).contiguous()
+
+
+def restrict(v):
+    '''
+    Full-weighting restriction of (..., nz, nx) to the coarse grid (see
+    ``_restrict_ref``): the twin on the CPU, kernel K7 on the card.
+    '''
+
+    if stencil._on_cpu(v):
+        return _restrict_ref(v)
+    out = cuda_kernels.restrict(_flat_batch(v))
+    return out.reshape(v.shape[:-2] + out.shape[-2:])
+
+
+def prolong(vc, nz, nx):
+    '''
+    Bilinear prolongation of (..., nzc, nxc) onto the (nz, nx) fine grid
+    (see ``_prolong_ref``): the twin on the CPU, kernel K7 on the card.
+    '''
+
+    if stencil._on_cpu(vc):
+        return _prolong_ref(vc, nz, nx)
+    out = cuda_kernels.prolong(_flat_batch(vc), nz, nx)
+    return out.reshape(vc.shape[:-2] + (nz, nx))
 
 
 class MGLevel(NamedTuple):
@@ -265,23 +298,28 @@ def presmooth_restrict(lvl, b, omega, nu1):
 
 def prolong_add_smooth(lvl, u, b, ec, omega, nu2):
     '''
-    The upstroke of a scalar level: u + mask * prolong(ec), then one
-    damped post-smoothing sweep, as one kernel (K4). More sweeps need
-    K5/K6, which are not ported yet.
+    The upstroke of a scalar level: u + mask * prolong(ec) and the first
+    damped post-smoothing sweep as one kernel (K4), then at nu2 = 2 one
+    more sweep (K5). Three or more sweeps run the two-sweep kernel K6,
+    which is not ported yet.
     '''
 
     _check_scalar(lvl)
-    if nu2 != 1:
+    if nu2 not in (1, 2):
         raise NotImplementedError(
-            'prolong_add_smooth: mg_nu2=%d needs kernel K5/K6 (one more '
-            'Jacobi sweep), not ported yet; use mg_nu2=1' % (nu2,))
-    u0 = stencil.prolong_add_smooth_batched(
-        lvl.planes[0, 0], omega * lvl.dinv[0, 0], lvl.mask, b[:, 0],
-        u[:, 0], ec[:, 0])
+            'prolong_add_smooth: mg_nu2=%d; the port runs 1 or 2 '
+            'post-smoothing sweeps (K4, then K5); more need the two-sweep '
+            'kernel K6, not ported yet' % (nu2,))
+    dinv_eff = omega * lvl.dinv[0, 0]
+    planes, bb = lvl.planes[0, 0], b[:, 0]
+    u0 = stencil.prolong_add_smooth_batched(planes, dinv_eff, lvl.mask, bb,
+                                            u[:, 0], ec[:, 0])
+    if nu2 == 2:
+        u0 = stencil.jacobi_sweep_batched(planes, dinv_eff, bb, u0)
     return u0[:, None]
 
 
-def v_cycle(hier, b, omega=0.6, nu1=2, nu2=1, level=0):
+def v_cycle(hier, b, omega=0.6, nu1=2, nu2=2, level=0):
     '''
     One multigrid V-cycle for the (shifted) operator; returns an
     approximate solution of A x = b with zero initial guess for a batch
@@ -294,3 +332,27 @@ def v_cycle(hier, b, omega=0.6, nu1=2, nu2=1, level=0):
     u, rc = presmooth_restrict(lvl, b, omega, nu1)
     ec = v_cycle(hier, rc, omega, nu1, nu2, level + 1)
     return prolong_add_smooth(lvl, u, b, ec, omega, nu2)
+
+
+def transpose_hierarchy(hier):
+    '''
+    Hierarchy for the transposed operator. Since R = (1/4) P^T, the Galerkin
+    coarse operator of A^T equals the transpose of the coarse operator of A,
+    so each level's planes are simply block-transposed; the coarsest dense
+    inverse is transposed, or its LU re-factorized from the transposed
+    planes.
+    '''
+
+    levels = []
+    for lvl in hier.levels:
+        planesT = stencil.transpose_block_planes(lvl.planes)
+        levels.append(MGLevel(planesT, invert_block_diag(block_diag(planesT)),
+                              lvl.mask))
+    lu, piv, cinv = None, None, None
+    if hier.coarse_inv is not None:
+        # inverse of the transpose is the transpose of the inverse
+        cinv = hier.coarse_inv.T.contiguous()
+    else:
+        lu, piv = torch.linalg.lu_factor(
+            planes_to_dense_torch(levels[-1].planes))
+    return MGHierarchy(tuple(levels), lu, piv, cinv)

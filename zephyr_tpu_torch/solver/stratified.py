@@ -1,7 +1,7 @@
 '''
 Stratified (depth-varying) spectral interior solve for the hybrid
 Helmholtz preconditioner: the port of ``zephyr_tpu.solver.stratified``
-for scalar (B=1) operators, forward only.
+for scalar (B=1) operators, with its transpose.
 
 Per-ROW mean stencil coefficients over an interior x-window, an FFT in x
 (``torch.fft``, cuFFT on the card), and for every cross-line wavenumber
@@ -13,7 +13,10 @@ kx the TRIDIAGONAL system in z solved by parallel cyclic reduction (PCR):
 The RHS-independent part of the reduction runs once at preparation time
 (``pcr_precompute``); each application only sweeps the right-hand side
 (``pcr_apply``), which on the card is kernel K3. complex64 operators
-store the per-level factors as bfloat16 re/im pairs.
+store the per-level factors as bfloat16 re/im pairs. The transposed
+family (``stratified_apply(..., transpose=True)``, the transpose solves of
+gradients) is reduced from the stored coefficients in full precision and
+swept in plain torch on every device, as the JAX package does.
 
 Not ported yet (each raises NotImplementedError): the DFT-matmul
 x-transform (``strat_dft='dft'``), the x-panel family
@@ -208,7 +211,8 @@ def pcr_apply(pcr, b):
     '''
     RHS-only cyclic-reduction sweep with precomputed levels, b
     (R, nz, nx). Full-precision (complex128) factors sweep in plain torch
-    on the CPU; on the card the factors are always bf16 and go to K3.
+    on the CPU; on the card the forward factors are always bf16 and go to
+    K3.
     '''
 
     if pcr.alphas.dtype == torch.bfloat16:
@@ -292,13 +296,45 @@ def stratified_coeffs(planes, precond_planes, shift, fft_shift,
     return tuple(bands)   # (l, d, u)
 
 
-def stratified_apply(strat, r):
+def transpose_strat(strat):
+    '''
+    Tridiagonal coefficients of the transposed stratified operator:
+    (T^T)[z] couples via l_T(z) = u(z-1), d, u_T(z) = l(z+1).
+    '''
+
+    l, d, u = strat
+    return (_shift_z(u, -1), d, _shift_z(l, +1))
+
+
+def transpose_pcr(strat, delta=1e-6):
+    '''
+    The RHS-independent reduction of the transposed family of a StratPCR
+    (or a bare (l, d, u) triple), from its stored coefficients and in
+    full precision, as the JAX package's transpose solve reduces it.
+    '''
+
+    ldu = strat.ldu if isinstance(strat, StratPCR) else strat
+    return pcr_precompute(*transpose_strat(tuple(ldu)), delta=delta,
+                          quantize=False)
+
+
+def stratified_apply(strat, r, transpose=False):
     '''
     Apply the stratified interior inverse to r (R, 1, nz, nx): x-FFT,
     per-kx tridiagonal solve in z (the precomputed PCR sweep), inverse
-    x-FFT. Forward only.
+    x-FFT.
+
+    With ``transpose=True``, ``strat`` is the transposed family
+    (``transpose_pcr``) and this applies the algebraic transpose
+    P^T = F T^{-T} F^{-1} (the x-DFT matrix is symmetric), sweeping the
+    full-precision factors in plain torch on every device: it is not a
+    kernel, in the JAX package or here.
     '''
 
+    if transpose:
+        rhat = torch.fft.ifft(r, dim=-1)
+        xhat = _pcr_sweep_rhs(strat.alphas, strat.gammas, strat.dinv, rhat)
+        return torch.fft.fft(xhat, dim=-1)
     rhat = torch.fft.fft(r[:, 0], dim=-1)
     xhat = pcr_apply(strat, rhat)
     return torch.fft.ifft(xhat, dim=-1)[:, None]
