@@ -8,12 +8,16 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
 
 1. versions, the card's name and power limit, the TF32 switches (both
    set off and printed);
-2. build the CUDA kernels K1-K5 and K7 from zephyr_tpu_torch/csrc with
-   nvcc (one nvcc per source, all started together);
+2. build the CUDA kernels K1-K5, K7 and K8 from zephyr_tpu_torch/csrc
+   with nvcc (one nvcc per source, all started together);
 3. hold each kernel against its plain torch twin on the card, complex64,
    at the main path's shapes and at odd ones (fail above 1e-5 relative to
-   the twin's largest magnitude), and time both; K3 also at nz=2048 (the
-   default config's full-resolution family, 11 levels);
+   the twin's largest magnitude), and time both, beside the least time
+   the card could take (its byte or operation bound) and, where one
+   PyTorch call computes the same function (K7: a strided convolution),
+   that call's time; K3 also at nz=2048 (the default config's
+   full-resolution family, 11 levels); K1 also at R=1 and odd shapes
+   (the unbatched apply K10); K8 at 2048^2 and 512^2 x 16 and 37x53 x 3;
 4. the forward-modelling oracle: ``MiniZephyr(config) * q`` on the card
    with the production solver options (4) and with no solverOpts, the
    default SolverConfig (4b), against AnalyticalHelmholtz
@@ -23,15 +27,28 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    homogeneous and the 4-layer model with the production config, and on
    the homogeneous model with the default config (5b) (relres <= 1e-5),
    plus the homogeneous oracle errors;
-6. (after 7) the launch counts of every kernel over phases 4-7 (each must
-   be > 0);
+6. (after 7 and 8) the launch counts of every kernel: over phases 4-7
+   (K1-K5, K7 must be > 0) and over phase 8 (K7, K8 must be > 0), each
+   path driven with the counts set to 0 just before it;
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
    at 2048^2 x 16 with the production config, timed; (c) at 512^2
    layered, one frequency, the gradient w.r.t. c by autograd through
    ``solve`` against ``fwi_misfit_grad_chunked`` (max-norm relative
-   difference <= 1e-3).
+   difference <= 1e-3);
+8. TTI (the Eurus 2x2 block system, GMRES, line-smoothed multigrid, K8)
+   in complex64: (a) ``Eurus(config) * q`` against the analytical oracle
+   at 200x100, isotropic and elliptical (error < 3e-2), default
+   SolverConfig; (b) the bench's ``eurus`` row (bench.py:425-484): 512^2
+   homogeneous, 16 sources, theta 0.3, eps 0.2, delta 0.1, the production
+   config with gmres_restart=20, mg_nu1=mg_nu2=1, make_chunked_solver
+   (chunk 16), warm-up then timed; (c) ``eurus_layered`` at 256^2 on the
+   4-layer model, timed without a warm-up of its own; (d) the
+   line-smoother pin of tests/test_eurus.py:86-123 (128^2 layered,
+   solve_info). (b)-(d) must end finite and below their
+   starting residual; whether they reach 1e-5 is printed, with the chunk
+   residual trace.
 
 It prints one JSON line of per-kernel results, the nvidia-smi line, and
 as its last line {"ok": true, "device": {...}}. It needs one CUDA device
@@ -70,8 +87,15 @@ KERNELS = {
                  'zephyr_tpu/ops/pallas_transfer.py:77'),
     'prolong': ('K7', 'zephyr_tpu_torch/csrc/k7_transfer.cu',
                 'zephyr_tpu/ops/pallas_transfer.py:77'),
+    'apply_block_stencil': ('K8',
+                            'zephyr_tpu_torch/csrc/k8_apply_block_stencil.cu',
+                            'zephyr_tpu/ops/pallas_stencil.py:1013'),
 }
 KERNEL_TOL = 1e-5
+#: the card's peaks for the bounds (H100 SXM data sheet, at 700 W): device
+#: memory bytes/s, and float32 flop/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 #: the device of every phase (a CPU rehearsal of the control flow may set
 #: it to 'cpu'; the script itself always runs on 'cuda')
 DEV = 'cuda'
@@ -94,6 +118,70 @@ def card_line():
 
 
 # --- phase 3 helpers ------------------------------------------------------
+
+def work(name, nz, nx, R, nsteps=None):
+    '''
+    (bytes, flops) one launch must move and compute at this shape: each
+    input read once, each output written once (complex64 8 B, the mask
+    float32 4 B, the bf16 PCR factors 2 B per part); flops count a complex
+    product as 6 and a complex multiply-add as 8.
+    '''
+    N = nz * nx
+    Nc = ((nz + 1) // 2) * ((nx + 1) // 2)
+    if name == 'apply_stencil':
+        return 8 * (9 * N + 2 * R * N), 72 * R * N
+    if name == 'presmooth_restrict':     # two sweeps (the main path)
+        return 8 * (10 * N + 2 * R * N + R * Nc) + 4 * N, \
+            R * (164 * N + 36 * Nc)
+    if name == 'pcr_sweep':
+        return 8 * nsteps * N + 4 * N + 16 * R * N, \
+            R * N * (16 * nsteps + 6)
+    if name == 'prolong_add_smooth':
+        return 8 * (10 * N + 3 * R * N + R * Nc) + 4 * N, 102 * R * N
+    if name == 'jacobi_sweep':
+        return 8 * (10 * N + 3 * R * N), 82 * R * N
+    if name == 'restrict':
+        return 8 * R * (N + Nc), 36 * R * Nc
+    if name == 'prolong':
+        return 8 * R * (Nc + N), 16 * R * N
+    if name == 'apply_block_stencil':
+        return 8 * (36 * N + 4 * R * N), 292 * R * N
+    raise KeyError(name)
+
+
+def bound(nbytes, flops):
+    '(ms, "bytes" or "operations"): the least time the card could take.'
+    t_b = nbytes / PEAK_BYTES_S * 1e3
+    t_f = flops / PEAK_F32_FLOPS * 1e3
+    return (t_b, 'bytes') if t_b >= t_f else (t_f, 'operations')
+
+
+def library_restrict(v):
+    '''
+    One PyTorch call computing K7's restriction: a stride-2 3x3
+    convolution of the (R, 1, nz, nx, 2) real view.
+    '''
+    import torch
+    w = torch.tensor([0.5, 1.0, 0.5], device=v.device)
+    W = (0.25 * torch.outer(w, w)).reshape(1, 1, 3, 3, 1)
+    out = torch.nn.functional.conv3d(torch.view_as_real(v).unsqueeze(1), W,
+                                     stride=(2, 2, 1), padding=(1, 1, 0))
+    return torch.view_as_complex(out.squeeze(1))
+
+
+def library_prolong(vc):
+    '''
+    One PyTorch call computing K7's prolongation onto the (2 nzc, 2 nxc)
+    grid: a stride-2 transposed 3x3 convolution of the real view.
+    '''
+    import torch
+    w = torch.tensor([0.5, 1.0, 0.5], device=vc.device)
+    W = torch.outer(w, w).reshape(1, 1, 3, 3, 1)
+    out = torch.nn.functional.conv_transpose3d(
+        torch.view_as_real(vc).unsqueeze(1), W, stride=(2, 2, 1),
+        padding=(1, 1, 0), output_padding=(1, 1, 0))
+    return torch.view_as_complex(out.squeeze(1))
+
 
 def cuda_ms(fn, reps=10, warm=2):
     import torch
@@ -150,6 +238,34 @@ def level_inputs(n_z, n_x, R, gen, shifted=True):
     return planes.contiguous(), D, mask, field
 
 
+#: the bench's TTI anisotropy (bench.py:447-449)
+TTI_ANISO = dict(theta=0.3, eps=0.2, delta=0.1)
+#: the bench's TTI solver options: production with gmres_restart=20 and
+#: mg_nu1=mg_nu2=1 (bench.py:441)
+TTI_OPTS = dict(PRODUCTION, gmres_restart=20, mg_nu1=1, mg_nu2=1)
+
+
+def tti_planes(n_z, n_x, c_np=None, shift=0.5j, pml_cap=1.0):
+    '''
+    The true and the CSLP-shifted Eurus planes, complex64 on the card, of
+    the bench's TTI rows: c 1500 (or ``c_np``), rho 1, freq 1500/16 and
+    TTI_ANISO.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops.eurus_coeff import eurus_planes
+    from zephyr_tpu_torch.solver.helmholtz import shifted_velocity
+    if c_np is None:
+        c_np = np.full((n_z, n_x), 1500.0, np.float32)
+    c = torch.as_tensor(c_np, device=DEV).to(torch.complex64)
+    rho = torch.ones((n_z, n_x), dtype=torch.float32, device=DEV)
+    aniso = {k: torch.full((n_z, n_x), v, dtype=torch.float32, device=DEV)
+             for k, v in TTI_ANISO.items()}
+    freq = 1500.0 / 16
+    return (eurus_planes(c, rho, freq, **aniso),
+            eurus_planes(shifted_velocity(c, shift), rho, freq,
+                         pml_cap=pml_cap, **aniso))
+
+
 def strat_factors(n, full=False):
     '''
     bf16 PCR factors for the n x n homogeneous model: of the fused
@@ -193,7 +309,12 @@ def check_kernels():
     results = {}
 
     def record(name, shape_desc, out, ref, main=False, timing=None,
-               key=None):
+               key=None, shape=None, library=None):
+        '''
+        Check out against ref; for a main-path shape also time the kernel
+        and its twin (and the library call, if any), beside the bound of
+        ``work(name, *shape)``.
+        '''
         rel, abs_err = rel_err(out, ref)
         say('  %-19s %-26s rel err %.3e  abs err %.3e'
             % (name, shape_desc, rel, abs_err))
@@ -202,13 +323,24 @@ def check_kernels():
                  % (name, shape_desc, rel, KERNEL_TOL))
         if main:
             key = key or name
-            results[key] = {'max_abs_err': abs_err}
             kern, plain = timing
-            results[key]['ms'] = cuda_ms(kern)
-            results[key]['plain_ms'] = cuda_ms(plain)
-            say('  %-19s %-26s kernel %.3f ms  plain %.3f ms'
-                % (name, shape_desc, results[key]['ms'],
-                   results[key]['plain_ms']))
+            nbytes, flops = work(name, *shape)
+            b_ms, b_by = bound(nbytes, flops)
+            r = {'max_abs_err': abs_err, 'ms': cuda_ms(kern),
+                 'plain_ms': cuda_ms(plain), 'bound_ms': b_ms,
+                 'bound_by': b_by, 'bytes': nbytes, 'flops': flops,
+                 'library_ms': None}
+            if library is not None:
+                lib_err = rel_err(library(), ref)[0]
+                r['library_ms'] = cuda_ms(library)
+                r['library_rel_err'] = lib_err
+            results[key] = r
+            say('  %-19s %-26s kernel %.3f ms  plain %.3f ms  bound %.3f ms '
+                '(%s)  library %s'
+                % (name, shape_desc, r['ms'], r['plain_ms'], b_ms, b_by,
+                   'none' if r['library_ms'] is None
+                   else '%.3f ms (rel err %.1e)' % (r['library_ms'],
+                                                    r['library_rel_err'])))
 
     # K1, K2 (1 and 2 sweeps), K4: main-path shapes and an odd one
     for (nz, nx, R, main) in ((2048, 2048, 16, True),
@@ -220,37 +352,67 @@ def check_kernels():
         b = field(R, nz, nx)
         ec = field(R, (nz + 1) // 2, (nx + 1) // 2)
 
+        shape = (nz, nx, R)
         record('apply_stencil', desc, ck.apply_stencil(planes, u),
                stencil.apply_stencil(planes, u), main,
                (lambda: ck.apply_stencil(planes, u),
-                lambda: stencil.apply_stencil(planes, u)))
+                lambda: stencil.apply_stencil(planes, u)), shape=shape)
+        # K10, the unbatched apply: K1 at R=1
+        u1 = u[:1].contiguous()
+        record('apply_stencil', desc.replace('R=%d' % R, 'R=1'),
+               ck.apply_stencil(planes, u1), stencil.apply_stencil(planes, u1),
+               main, (lambda: ck.apply_stencil(planes, u1),
+                      lambda: stencil.apply_stencil(planes, u1)),
+               key='apply_stencil R=1', shape=(nz, nx, 1))
         for ns, ref in ((2, stencil._ps2rr_ref), (1, stencil._ps1rr_ref)):
             record('presmooth_restrict',
                    desc + ' nsweeps=%d' % ns,
                    ck.presmooth_restrict(planes, D, mask, b, ns),
                    ref(planes, D, mask, b), main and ns == 2,
                    (lambda: ck.presmooth_restrict(planes, D, mask, b, 2),
-                    lambda: stencil._ps2rr_ref(planes, D, mask, b)))
+                    lambda: stencil._ps2rr_ref(planes, D, mask, b)),
+                   shape=shape)
         record('prolong_add_smooth', desc,
                ck.prolong_add_smooth(planes, D, mask, b, u, ec),
                stencil._pas_ref(planes, D, mask, b, u, ec), main,
                (lambda: ck.prolong_add_smooth(planes, D, mask, b, u, ec),
-                lambda: stencil._pas_ref(planes, D, mask, b, u, ec)))
+                lambda: stencil._pas_ref(planes, D, mask, b, u, ec)),
+               shape=shape)
         record('jacobi_sweep', desc, ck.jacobi_sweep(planes, D, b, u),
                stencil._jacobi_ref(planes, D, b, u), main,
                (lambda: ck.jacobi_sweep(planes, D, b, u),
-                lambda: stencil._jacobi_ref(planes, D, b, u)))
+                lambda: stencil._jacobi_ref(planes, D, b, u)), shape=shape)
         cdesc = '%s -> %dx%d' % (desc, (nz + 1) // 2, (nx + 1) // 2)
         record('restrict', cdesc, ck.restrict(b),
                multigrid._restrict_ref(b), main,
                (lambda: ck.restrict(b),
-                lambda: multigrid._restrict_ref(b)))
+                lambda: multigrid._restrict_ref(b)), shape=shape,
+               library=lambda: library_restrict(b))
         pdesc = '%dx%d -> %s' % ((nz + 1) // 2, (nx + 1) // 2, desc)
         record('prolong', pdesc, ck.prolong(ec, nz, nx),
                multigrid._prolong_ref(ec, nz, nx), main,
                (lambda: ck.prolong(ec, nz, nx),
-                lambda: multigrid._prolong_ref(ec, nz, nx)))
-        del planes, D, mask, u, b, ec
+                lambda: multigrid._prolong_ref(ec, nz, nx)), shape=shape,
+               library=lambda: library_prolong(ec))
+        del planes, D, mask, u, u1, b, ec
+        torch.cuda.empty_cache()
+
+    # K8: the 2x2 block apply on the shifted Eurus TTI planes
+    for (nz, nx, R, main) in ((2048, 2048, 16, True), (512, 512, 16, False),
+                              (37, 53, 3, False)):
+        desc = '%dx%d R=%d' % (nz, nx, R)
+        planes = tti_planes(nz, nx)[1]
+        u = torch.complex(torch.randn((R, 2, nz, nx), generator=gen,
+                                      device=DEV),
+                          torch.randn((R, 2, nz, nx), generator=gen,
+                                      device=DEV))
+        record('apply_block_stencil', desc,
+               ck.apply_block_stencil(planes, u),
+               stencil.apply_block_stencil(planes, u), main,
+               (lambda: ck.apply_block_stencil(planes, u),
+                lambda: stencil.apply_block_stencil(planes, u)),
+               shape=(nz, nx, R))
+        del planes, u
         torch.cuda.empty_cache()
 
     # K3: half grids of the 2048^2 (nz=1024, 10 levels) and 1024^2
@@ -274,7 +436,8 @@ def check_kernels():
                    R == main_R,
                    (lambda: ck.pcr_sweep(*args),
                     lambda: stratified._pcr_sweep_bf16_ref(*args)),
-                   key='pcr_sweep nz=%d' % nz if full else None)
+                   key='pcr_sweep nz=%d' % nz if full else None,
+                   shape=(nz, nz, R, pcr.alphas.shape[0]))
             del b, args
         del pcr
         torch.cuda.empty_cache()
@@ -585,6 +748,150 @@ def gradient_agreement(n, nsrc, nrec, card, limit=1e-3):
     return out
 
 
+# --- phase 8 -------------------------------------------------------------
+
+def eurus_oracle(eps_delta):
+    '''
+    Phase 8a: Eurus(config) * q on the card against the analytical oracle,
+    the reference test configuration of tests/test_eurus.py:19-35, no
+    solverOpts (the default SolverConfig; GMRES for the block system).
+    '''
+    from zephyr_tpu_torch.backend import (Eurus, StackedSimpleSource,
+                                          AnalyticalHelmholtz)
+    nx, nz = 100, 200
+    e, d = eps_delta
+    config = {'c': 2000. * np.ones((nz, nx)), 'rho': np.ones((nz, nx)),
+              'freq': 2e2, 'nx': nx, 'nz': nz, 'dx': 1., 'dz': 1.,
+              'theta': np.zeros((nz, nx)), 'eps': e * np.ones((nz, nx)),
+              'delta': d * np.ones((nz, nx)), 'nPML': 10, 'cPML': 1e3,
+              'freeSurf': (False, False, False, False), 'device': DEV}
+    sloc = np.array([[25, 25]])
+    t0 = time.perf_counter()
+    u = (Eurus(config) * StackedSimpleSource(config)(sloc)).ravel()
+    secs = time.perf_counter() - t0
+    if u.shape != (2 * nz * nx,) or not np.isfinite(u).all():
+        fail('Eurus oracle: wavefield of shape %s, finite %s'
+             % (u.shape, np.isfinite(u).all()))
+    uAH = AnalyticalHelmholtz(config)(sloc)
+    segA = uAH.reshape((nz, nx))[40:180, 40:80]
+    segE = u[:nx * nz].reshape((nz, nx))[40:180, 40:80]
+    rel = (segA - segE) / abs(segA)
+    err = np.sqrt((rel.conj() * rel).sum()).real / rel.size
+    name = 'isotropic' if e == 0 and d == 0 else 'elliptical'
+    say('Eurus oracle 200x100 %s (eps %.1f, delta %.1f) on %s, default '
+        'config: error %.3e (limit 3e-2), %.2f s' % (name, e, d, DEV, err,
+                                                     secs))
+    if not err < 3e-2:
+        fail('Eurus oracle error %.3e >= 3e-2' % err)
+    return {'case': name, 'error': err, 'seconds': secs}
+
+
+def tti_sources(n, nsrc):
+    '''
+    The TTI rows' right-hand sides, (nsrc, 2, n, n) complex64 on the card:
+    unit point sources on the first component at positions drawn as
+    bench.py:464-465 does (seed 1).
+    '''
+    import torch
+    pos = np.random.default_rng(1).integers(n // 8, 7 * n // 8,
+                                            size=(nsrc, 2))
+    b = torch.zeros((nsrc, 2, n, n), dtype=torch.complex64, device=DEV)
+    b[torch.arange(nsrc), 0, torch.as_tensor(pos[:, 0]),
+      torch.as_tensor(pos[:, 1])] = 1.0
+    return b
+
+
+def tti_bench(n, nsrc, medium, card, warm=True):
+    '''
+    Phase 8b/8c: the bench's eurus / eurus_layered row (bench.py:425-484)
+    through the port: prepare_operator + make_chunked_solver(chunk=16),
+    the production config with gmres_restart=20 and mg_nu1=mg_nu2=1,
+    a warm-up solve (``warm``) then a timed one. Returns the run's
+    numbers, the chunk residual trace and the K8 launches per GMRES
+    iteration of the timed solve.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    from zephyr_tpu_torch.solver.helmholtz import (
+        SolverConfig, prepare_operator, make_chunked_solver)
+    cfg = SolverConfig(**TTI_OPTS)
+    c_np = None if medium == 'hom' else layered_c(n)
+    reset_peak()
+    t0 = time.perf_counter()
+    planes, pplanes = tti_planes(n, n, c_np, cfg.shift, cfg.pml_cap)
+    op = prepare_operator(planes, pplanes, cfg, with_transpose=False)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    b = tti_sources(n, nsrc)
+    solver = make_chunked_solver(cfg, chunk=16)
+    iters0 = relres0 = None
+    if warm:
+        _, iters0, relres0 = solver(op, b)
+    torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)
+    trace = []
+    t0 = time.perf_counter()
+    x, iters, relres = solver(op, b, trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_iter = {k: (ck.LAUNCHES[k] - before[k]) / max(iters, 1)
+                for k in ('apply_block_stencil', 'restrict', 'prolong')}
+    out = {'row': 'eurus' if medium == 'hom' else 'eurus_layered',
+           'n': n, 'nsrc': nsrc, 'iters': iters, 'relres': relres,
+           'reached_1e-5': bool(relres <= 1e-5), 'wall_s': wall,
+           'solves_per_s': nsrc / wall, 'prep_s': t_prep,
+           'warmup_iters': iters0, 'warmup_relres': relres0,
+           'launches_per_iter': per_iter, 'trace': trace,
+           'peak_gb': peak_gb()}
+    say('TTI %s %d^2 x %d src: iters %d  relres %.3e (1e-5 %s)  wall %.3f s'
+        '  %.3f solves/s  (prep %.2f s; peak %.2f GB; card %s)'
+        % (out['row'], n, nsrc, iters, relres,
+           'reached' if out['reached_1e-5'] else 'NOT reached', wall,
+           nsrc / wall, t_prep, out['peak_gb'], card))
+    say('  chunk (iterations, worst relres) trace: %s'
+        % json.dumps([(i, float('%.3e' % r)) for i, r in trace]))
+    say('  launches per GMRES iteration: %s' % json.dumps(per_iter))
+    if not (np.isfinite(relres) and relres < 1.0):
+        fail('TTI %s: relres %r is not finite and below the starting 1.0'
+             % (out['row'], relres))
+    if not bool(torch.isfinite(x).all()):
+        fail('TTI %s: non-finite wavefield' % out['row'])
+    return out
+
+
+def tti_pin(card, n=128):
+    '''
+    Phase 8d: the line-smoother pin of tests/test_eurus.py:86-123, 128^2
+    layered TTI with solve_info.
+    '''
+    import torch
+    from zephyr_tpu_torch.solver.helmholtz import (
+        SolverConfig, prepare_operator, solve_info)
+    cfg = SolverConfig(**dict(TTI_OPTS, maxiter=280, fft_shift=0.25j))
+    planes, pplanes = tti_planes(n, n, layered_c(n), cfg.shift, cfg.pml_cap)
+    op = prepare_operator(planes, pplanes, cfg, with_transpose=False)
+    b = torch.zeros((1, 2, n, n), dtype=torch.complex64, device=DEV)
+    b[0, 0, n // 2, n // 2] = 1.0
+    t0 = time.perf_counter()
+    x, iters, relres = solve_info(op, b, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    it, rr = int(iters[0]), float(relres[0])
+    say('TTI pin %d^2 layered solve_info: iters %d  relres %.3e (1e-5 %s)'
+        '  %.2f s (card %s)' % (n, it, rr, 'reached' if rr <= 1e-5
+                                else 'NOT reached', secs, card))
+    if not (np.isfinite(rr) and rr < 1.0 and bool(torch.isfinite(x).all())):
+        fail('TTI pin: relres %r' % rr)
+    return {'n': n, 'iters': it, 'relres': rr, 'reached_1e-5': rr <= 1e-5,
+            'seconds': secs}
+
+
+#: the kernels each main path must launch (phase 6)
+SCALAR_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
+               'prolong_add_smooth', 'jacobi_sweep', 'restrict', 'prolong')
+TTI_PATH = ('apply_block_stencil', 'restrict', 'prolong')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -621,7 +928,9 @@ def main():
     say('phase 3: kernels against their torch twins (complex64, card)')
     kres = check_kernels()
 
-    # phases 4-7 on the main paths, with the launch counts reset
+    # phases 4-7 (the scalar paths) and phase 8 (TTI), each with the
+    # launch counts set to 0 just before it and read just after
+    launches = {}
     ck.reset_launches()
     oracle_flow()
     oracle_flow(None)
@@ -632,26 +941,43 @@ def main():
              'solve_backward': solve_backward(2048, 16, card),
              'agreement': gradient_agreement(512, 8, 32, card)}
     torch.cuda.synchronize()
-    launches = dict(ck.LAUNCHES)
+    launches['scalar'] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    # the layered row stalls on the card (fault F4: 2000 iterations,
+    # 80 s a solve), so it runs once, after the hom row has warmed
+    # every code path
+    tti = {'oracle': [eurus_oracle((0., 0.)), eurus_oracle((0.2, 0.2))],
+           'eurus': tti_bench(512, 16, 'hom', card),
+           'eurus_layered': tti_bench(256, 16, 'layered', card, warm=False),
+           'pin': tti_pin(card)}
+    torch.cuda.synchronize()
+    launches['tti'] = dict(ck.LAUNCHES)
 
     # phase 6
-    say('launches over phases 4-7: %s' % json.dumps(launches))
-    for name, count in launches.items():
-        if count == 0:
-            fail('kernel %s was never launched on the main path' % name)
+    for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH)):
+        say('launches over the %s path: %s'
+            % (path, json.dumps(launches[path])))
+        for name in names:
+            if launches[path][name] == 0:
+                fail('kernel %s was never launched on the %s path'
+                     % (name, path))
     for key in sorted(k for k in kres if k not in KERNELS):
         say('%s: %s' % (key, json.dumps(kres[key])))
+    say(json.dumps({'runs': runs, 'card': card}))
+    say(json.dumps({'gradients': grads, 'card': card}))
+    say(json.dumps({'tti': tti, 'card': card}))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():
         r = kres[name]
         kernels.append({'name': '%s %s' % (tag, name), 'route': 'cuda',
                         'source': src, 'replaces': repl,
-                        'launches': launches[name],
+                        'launches': sum(launches[p].get(name, 0)
+                                        for p in launches),
                         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-                        'plain_ms': r['plain_ms']})
-    say(json.dumps({'runs': runs, 'card': card}))
-    say(json.dumps({'gradients': grads, 'card': card}))
+                        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
     say(json.dumps({'kernels': kernels}))
     say(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -109,7 +109,8 @@ def test_preconditioners_match_jax(name):
     op_j = _jax_op_jit(jcfg)(c)
     op_t = _torch_op(torch.from_numpy(c), cfg)
     op_c = convert.operator_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                              op_j))
+                                                              op_j),
+                                       device='cpu')
     assert len(op_c.hierT.levels) == len(op_j.hierT.levels)
     rng = np.random.default_rng(3)
     r = (rng.standard_normal((2, 1, NZ, NX))
@@ -146,7 +147,7 @@ def test_minizephyr_default_config_matches_jax():
     '``MiniZephyr(config) * q`` with no solverOpts, in both packages.'
     config = {'c': np.where(np.arange(48)[:, None] < 24, 2500., 3200.)
               * np.ones((48, 40)), 'rho': 1., 'nx': 40, 'nz': 48,
-              'freq': 150.}
+              'freq': 150., 'device': 'cpu'}
     locs = np.array([[20., 16.], [11.3, 30.7]])
     q = tb.SparseKaiserSource(config)(locs)
     u_t = tb.MiniZephyr(config) * q
@@ -225,7 +226,8 @@ def test_converted_state_backward_matches_jax_vjp():
     jcfg, cfg = _configs('production', tol=1e-10)
     op_j = _jax_op_jit(jcfg)(_model('layered'))
     op = convert.operator_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                            op_j))
+                                                            op_j),
+                                     device='cpu')
     g = np.random.default_rng(9).standard_normal((1, NZ, NX)) * (1 + 2j)
     b = torch.from_numpy(_rhs()[0]).requires_grad_(True)
     u = th.solve(op, b, cfg)

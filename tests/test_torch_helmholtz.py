@@ -10,7 +10,8 @@ inverse, nu1=2, nu2=1) cut to small grids by mg_min_size=10.
   solutions agree to rel 1e-6 (both stop below tol 1e-5; the two
   trajectories differ only by complex128 rounding).
 - The same holds when the port solves from the JAX-prepared state
-  (``convert.operator_from_numpy``), and for the chunked solver.
+  (``convert.operator_from_numpy``), for the chunked solver, and with
+  ``krylov='gmres'``/``'fgmres'`` (equal GMRES iteration counts).
 '''
 
 import numpy as np
@@ -64,7 +65,8 @@ def _jax_op(c, cfg):
 
 
 def _torch_op(c, cfg):
-    c, rho = convert.model_from_numpy(c, np.ones((NZ, NX)))
+    c, rho = convert.model_from_numpy(c, np.ones((NZ, NX)),
+                                     device='cpu')
     p = tplanes(c, rho, FREQ)[None, None]
     pp = tplanes(th.shifted_velocity(c, cfg.shift), rho, FREQ,
                  pml_cap=cfg.pml_cap)[None, None]
@@ -127,7 +129,7 @@ def test_solve_from_converted_jax_state(jax_reference):
     c, op_j, x_j, it_j, _ = jax_reference
     _, cfg = _configs()
     tree = jax.tree_util.tree_map(np.asarray, op_j)
-    op = convert.operator_from_numpy(tree)
+    op = convert.operator_from_numpy(tree, device='cpu')
     assert op.strat.alphas.dtype == torch.complex128
     x_t, it_t, _ = th.solve_info(op, torch.from_numpy(_rhs()), cfg)
     assert it_t.tolist() == it_j.tolist()
@@ -140,7 +142,8 @@ def test_converted_lu_coarse_and_complex64_state():
     c = _model('layered')
     op_j = _jax_op(c, jcfg)
     op = convert.operator_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                            op_j))
+                                                            op_j),
+                                     device='cpu')
     b = _rhs()
     x_j = jax.vmap(lambda bb: jh.solve_info(op_j, bb, jcfg)[0])(
         jnp.asarray(b))
@@ -154,7 +157,8 @@ def test_converted_lu_coarse_and_complex64_state():
     strat = pcr_precompute(*op64.strat.ldu)
     op64 = op64._replace(strat=strat)
     t64 = convert.operator_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                             op64))
+                                                             op64),
+                                      device='cpu')
     assert t64.strat.alphas.dtype == torch.bfloat16
     assert np.array_equal(
         t64.strat.alphas.view(torch.int16).numpy().view(np.uint16),
@@ -190,9 +194,29 @@ UNPORTED = [
     dict(mg_nu2=3), dict(mg_nu1=3), dict(mg_nu1=0),
     dict(fft_mode='2d'), dict(mg_nu2=0), dict(hybrid_comp='add'),
     dict(fft_scale=4), dict(strat_panels=2), dict(strat_dft='dft'),
-    dict(krylov='gmres'), dict(krylov='fgmres'),
+    dict(mg_smoother='chebyshev'), dict(precond='fft'),
     dict(mg_coarse='iterative'),
 ]
+
+
+@pytest.mark.parametrize('krylov', ['gmres', 'fgmres'])
+def test_gmres_krylov_matches_jax(krylov):
+    '''
+    krylov='gmres'/'fgmres' on the scalar production config: equal
+    iteration counts per RHS (multiples of gmres_restart) and rel 1e-6.
+    '''
+    jcfg, cfg = _configs(krylov=krylov, gmres_restart=10)
+    c = _model('layered')
+    op_j = _jax_op(c, jcfg)
+    x_j, it_j, _ = jax.jit(jax.vmap(lambda b: jh.solve_info(op_j, b,
+                                                            jcfg)))(
+        jnp.asarray(_rhs()))
+    x_t, it_t, rr_t = th.solve_info(_torch_op(c, cfg),
+                                    torch.from_numpy(_rhs()), cfg)
+    assert it_t.tolist() == np.asarray(it_j).tolist()
+    assert all(int(i) % 10 == 0 for i in it_t)
+    assert np.all(rr_t.numpy() <= 1e-5)
+    assert _rel(x_t, x_j) < 1e-6
 
 
 @pytest.mark.parametrize('kw', UNPORTED)
@@ -204,9 +228,10 @@ def test_unported_configs_raise(kw):
 
 def test_default_config_and_block_operators_raise():
     '''
-    The default SolverConfig and the 'mult' compositions run now (K5,
-    K7); three post-smoothing sweeps still need K6, and block operators
-    still raise.
+    The default SolverConfig and the 'mult' compositions run (K5, K7);
+    three post-smoothing sweeps still need K6. Block (B=2, TTI) operators
+    prepare and solve forward; their backward (TTI gradients) raises, and
+    other block sizes raise.
     '''
     th.check_config(th.SolverConfig())
     for kw in (dict(hybrid_comp='mult'), dict(fft_scale=1),
@@ -215,8 +240,22 @@ def test_default_config_and_block_operators_raise():
     with pytest.raises(NotImplementedError, match='K6'):
         th.check_config(th.SolverConfig(mg_nu2=3))
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match='B=2'):
-        th.check_config(cfg, block_size=2)
+    th.check_config(cfg, block_size=2)
+    with pytest.raises(NotImplementedError, match='B=3'):
+        th.check_config(cfg, block_size=3)
+    from zephyr_tpu_torch.ops.eurus_coeff import eurus_planes
+    c, rho = convert.model_from_numpy(_model('hom'), np.ones((NZ, NX)),
+                                      device='cpu')
+    op = th.prepare_operator(
+        eurus_planes(c, rho, FREQ),
+        eurus_planes(th.shifted_velocity(c, cfg.shift), rho, FREQ,
+                     pml_cap=cfg.pml_cap), cfg)
+    q = np.zeros((1, 2, NZ, NX), complex)
+    q[0, 0, 16, 28] = 1.0
+    _, it, rr = th.solve_info(op, torch.from_numpy(q), cfg)
+    assert float(rr[0]) <= cfg.tol and int(it[0]) % cfg.gmres_restart == 0
+    with pytest.raises(NotImplementedError, match='TTI gradients'):
+        th._make_precond(op, cfg, transpose=True)
     # the plain multigrid preconditioner with the fused kernels is ported
     _, mg = _configs(precond='mg', tol=1e-7)
     op = _torch_op(_model('hom'), mg)

@@ -1,5 +1,5 @@
 '''
-The CUDA kernels K1-K5 and K7 against their torch twins, on the card,
+The CUDA kernels K1-K5, K7 and K8 against their torch twins, on the card,
 complex64, at small and odd shapes (chip_smoke.py runs the same checks
 at the main path's shapes). Marked ``cuda``: without an NVIDIA GPU and
 nvcc they skip. On a machine with one (where jax is not installed, add
@@ -105,6 +105,23 @@ def test_k3_matches_twin(dev, nz, nx, R):
     args = (pcr.alphas, pcr.gammas, pcr.dinv, b)
     assert _close(ck.pcr_sweep(*args),
                   stratified._pcr_sweep_bf16_ref(*args))
+
+
+@pytest.mark.parametrize('nz,nx,R', SHAPES)
+def test_k8_matches_twin(dev, nz, nx, R):
+    gen = torch.Generator().manual_seed(nz * 7 + nx)
+    planes = _rand(gen, dev, 2, 2, 9, nz, nx).contiguous()
+    u = _rand(gen, dev, R, 2, nz, nx).contiguous()
+    n = ck.LAUNCHES['apply_block_stencil']
+    out = stencil.apply_block_stencil_batched(planes, u)
+    assert ck.LAUNCHES['apply_block_stencil'] == n + 1
+    assert _close(out, stencil.apply_block_stencil(planes, u))
+    # a transposed view (the x-line sweep hands one over) is copied first
+    ut = u.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert _close(stencil.apply_block_stencil_batched(planes, ut),
+                  stencil.apply_block_stencil(planes, u))
+    with pytest.raises(ValueError):
+        ck.apply_block_stencil(planes, u[:, :1].contiguous())
 
 
 def test_wrappers_count_and_validate(dev):

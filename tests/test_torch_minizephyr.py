@@ -49,7 +49,7 @@ def _small_config(layered):
     if layered:
         c[nz // 2:] = 3200.
     return {'c': c, 'rho': 1., 'nx': nx, 'nz': nz, 'freq': 150.,
-            'solverOpts': dict(PRODUCTION, tol=1e-9, mg_min_size=10)}
+            'device': 'cpu', 'solverOpts': dict(PRODUCTION, tol=1e-9, mg_min_size=10)}
 
 
 @pytest.mark.parametrize('cls', ['MiniZephyr', 'MiniZephyrHD'])
@@ -69,7 +69,7 @@ def test_minizephyr_mul_matches_jax(cls, layered):
 def test_oracle_flow():
     'The verify recipe, in the port, with the production solver options.'
     config = {'c': 2500., 'rho': 1., 'nx': 100, 'nz': 200, 'freq': 200.,
-              'solverOpts': PRODUCTION}
+              'device': 'cpu', 'solverOpts': PRODUCTION}
     loc = np.array([[25., 25.]])
     u = tb.MiniZephyr(config) * tb.SparseKaiserSource(config)(loc)
     uAH = tb.AnalyticalHelmholtz(config)(loc)
@@ -98,7 +98,8 @@ def test_factors_lifecycle_and_config():
         tb.MiniZephyr({'c': 2500., 'nx': 8, 'nz': 8})
     # the default SolverConfig ('mult', full-resolution stratified solve,
     # LU coarse solve) prepares a forward-only operator
-    op = tb.MiniZephyr({'c': 2500., 'nx': 40, 'nz': 48, 'freq': 150.}).Ainv
+    op = tb.MiniZephyr({'c': 2500., 'nx': 40, 'nz': 48, 'freq': 150.,
+                        'device': 'cpu'}).Ainv
     assert op.strat.ldu.shape[-2:] == (48, 40) and op.cplanes is None
     assert op.hier.coarse_lu is not None and op.hierT is None
 
@@ -183,6 +184,39 @@ def test_import_loads_no_jax():
     for path in files:
         with open(path) as fh:
             assert not bad.search(fh.read()), path
+
+
+def test_entry_points_default_to_the_card():
+    '''
+    The discretizations, fwi_misfit_grad_chunked and the convert
+    functions run on the card unless the caller passes 'cpu'; without a
+    card the default raises a RuntimeError naming device='cpu' (no quiet
+    CPU fallback).
+    '''
+    from zephyr_tpu_torch import convert
+    from zephyr_tpu_torch.core.device import resolve_device
+    from zephyr_tpu_torch.parallel import fwi_misfit_grad_chunked
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default runs there')
+    config = _small_config(False)
+    del config['device']
+    for cls in (tb.MiniZephyr, tb.MiniZephyrHD, tb.Eurus, tb.EurusHD):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(config).device
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tb.MiniZephyr(config) * np.zeros(48 * 40)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.tensor_from_numpy(np.zeros(3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.model_from_numpy(np.ones((2, 2)), np.ones((2, 2)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.operator_from_numpy(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fwi_misfit_grad_chunked(np.full((8, 8), 2000.), np.ones((8, 8)),
+                                np.array([10.]), None, None,
+                                np.zeros((1, 1, 1), complex))
+    assert resolve_device('cpu') == torch.device('cpu')
+    assert tb.Eurus(dict(config, device='cpu')).dtype == torch.complex128
 
 
 def test_cpu_dispatch_runs_the_twins():

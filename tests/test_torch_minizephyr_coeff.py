@@ -47,7 +47,7 @@ def test_planes_parity(kw):
     kw = dict(kw)
     freq = kw.pop('freq', 120.)
     p_j = jplanes(jnp.asarray(C), jnp.asarray(RHO), freq, **kw)
-    c, rho = model_from_numpy(C, RHO)
+    c, rho = model_from_numpy(C, RHO, device='cpu')
     p_t = tplanes(c, rho, freq, **kw)
     assert p_t.shape == (9, NZ, NX) and p_t.dtype == torch.complex128
     assert _rel(p_t, p_j) < 1e-12
@@ -57,13 +57,13 @@ def test_shifted_planes_parity():
     'The CSLP preconditioner planes (shifted velocity, capped PML).'
     p_j = jplanes(jshift(jnp.asarray(C), 0.5j), jnp.asarray(RHO), 120.,
                   pml_cap=1.0)
-    c, rho = model_from_numpy(C, RHO)
+    c, rho = model_from_numpy(C, RHO, device='cpu')
     p_t = tplanes(tshift(c, 0.5j), rho, 120., pml_cap=1.0)
     assert _rel(p_t, p_j) < 1e-12
 
 
 def test_planes_autograd_flows_through_c():
-    c, rho = model_from_numpy(C, RHO)
+    c, rho = model_from_numpy(C, RHO, device='cpu')
     c = c.clone().requires_grad_(True)
     p = tplanes(c, rho, 120.)
     torch.sum(torch.abs(p) ** 2).backward()

@@ -110,7 +110,8 @@ def test_fwi_gradient_dense_matches_jax():
     m_j, g_j = jmf.fwi_misfit_grad_chunked(*args, config=JConfig(**OPTS),
                                            **kw)
     m_t, g_t = tmf.fwi_misfit_grad_chunked(*args,
-                                           config=SolverConfig(**OPTS), **kw)
+                                           config=SolverConfig(**OPTS),
+                                           device='cpu', **kw)
     assert g_t.shape == (nz, nx) and g_t.dtype == np.float64
     assert abs(m_t - m_j) / m_j < 1e-8
     assert _rel(g_t, g_j) < 1e-6
@@ -138,7 +139,7 @@ def test_fwi_gradient_stamps_per_frequency_grids_match_jax():
                                            config=JConfig(**OPTS), **kw)
     m_t, g_t = tmf.fwi_misfit_grad_chunked(c, rho, freqs, None, None, dobs,
                                            config=SolverConfig(**OPTS),
-                                           **kw)
+                                           device='cpu', **kw)
     assert abs(m_t - m_j) / m_j < 1e-8
     assert _rel(g_t, g_j) < 1e-6
 
@@ -148,7 +149,8 @@ def test_fwi_gradient_central_difference():
     cfg = SolverConfig(**dict(OPTS, tol=1e-11, maxiter=600))
     stats = {}
     m0, g = tmf.fwi_misfit_grad_chunked(c, rho, freqs, None, None, dobs,
-                                        config=cfg, stats=stats, **kw)
+                                        config=cfg, stats=stats,
+                                        device='cpu', **kw)
     assert np.isfinite(m0) and np.isfinite(g).all()
     assert stats['shapes'] == [(32, 32), (48, 48)]
     assert len(stats['iters']) == 2 and set(stats['seconds']) == {
@@ -161,9 +163,11 @@ def test_fwi_gradient_central_difference():
     dc = np.apply_along_axis(np.convolve, 1, dc, k, mode='same')
     eps = 0.05
     m_p, _ = tmf.fwi_misfit_grad_chunked(c + eps * dc, rho, freqs, None,
-                                         None, dobs, config=cfg, **kw)
+                                         None, dobs, config=cfg,
+                                         device='cpu', **kw)
     m_m, _ = tmf.fwi_misfit_grad_chunked(c - eps * dc, rho, freqs, None,
-                                         None, dobs, config=cfg, **kw)
+                                         None, dobs, config=cfg,
+                                         device='cpu', **kw)
     fd = (m_p - m_m) / (2 * eps)
     an = float(np.sum(g * dc))
     assert abs(fd - an) / abs(an) < 2e-4, (fd, an)

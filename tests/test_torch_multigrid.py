@@ -82,11 +82,22 @@ def test_v_cycle_parity(hiers, coarse):
 
 
 def test_unported_smoothing_raises(hiers):
+    '''
+    Three sweeps on a scalar level need K6 and raise; smoother='line' on
+    scalar planes is 'jacobi', as in the JAX package.
+    '''
     _, ht = hiers['inv']
     b = torch.zeros((1, 1, NZ, NX), dtype=torch.complex128)
     with pytest.raises(NotImplementedError, match='K6'):
         tmg.v_cycle(ht, b, nu2=3)
     with pytest.raises(NotImplementedError, match='K6'):
         tmg.v_cycle(ht, b, nu1=3)
-    with pytest.raises(NotImplementedError, match='TTI'):
-        tmg.build_hierarchy(ht.levels[0].planes, smoother='line')
+    hl = tmg.build_hierarchy(ht.levels[0].planes, min_size=10,
+                             coarse='inv', smoother='line')
+    assert all(lv.linez is None and lv.linex is None for lv in hl.levels)
+    r = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 1, NZ, NX)) + 0j)
+    assert torch.equal(tmg.v_cycle(hl, r, omega=0.5, nu1=2, nu2=1),
+                       tmg.v_cycle(ht, r, omega=0.5, nu1=2, nu2=1))
+    with pytest.raises(ValueError, match='smoother'):
+        tmg.build_hierarchy(ht.levels[0].planes, smoother='sor')

@@ -104,7 +104,8 @@ def test_bf16_factors_bit_identical_complex64():
         assert np.array_equal(_bits(getattr(p_t, name)),
                               _bits(getattr(p_j, name))), name
     # the converter carries bf16 leaves bit for bit
-    assert np.array_equal(_bits(tensor_from_numpy(np.asarray(p_j.alphas))),
+    assert np.array_equal(_bits(tensor_from_numpy(np.asarray(p_j.alphas),
+                                             device='cpu')),
                           _bits(p_j.alphas))
 
 

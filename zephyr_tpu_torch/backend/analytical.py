@@ -14,6 +14,14 @@ import torch
 from ..ops.special import hankel1_0
 
 
+def _field(v):
+    '''
+    A config value as the oracle computes with it: numbers as they are,
+    (nz, nx) arrays (the Eurus configs' c, rho, eps, theta) as tensors.
+    '''
+    return torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+
+
 class AnalyticalHelmholtz(object):
     '''
     The analytical Helmholtz system. Parity with the reference includes its
@@ -25,10 +33,10 @@ class AnalyticalHelmholtz(object):
 
         self.omega = 2 * np.pi * systemConfig['freq']
         self.c = systemConfig['c']
-        self.rho = systemConfig.get('rho', 1.)
-        self.k = self.omega / self.c
-        self.stretch = 1. / (1 + (2. * systemConfig.get('eps', 0.)))
-        self.theta = systemConfig.get('theta', 0.)
+        self.rho = _field(systemConfig.get('rho', 1.))
+        self.k = _field(self.omega / self.c)
+        self.stretch = _field(1. / (1 + (2. * systemConfig.get('eps', 0.))))
+        self.theta = _field(systemConfig.get('theta', 0.))
         self.scaleterm = systemConfig.get('scaleterm', 0.5)
 
         xorig = systemConfig.get('xorig', 0.)

@@ -1,9 +1,10 @@
 '''
-Low-level model-dependent base class for zephyr_tpu_torch.
+Low-level model-dependent base classes for zephyr_tpu_torch.
 
-A copy of ``zephyr_tpu.backend.base.BaseModelDependent`` (numpy only),
-mirroring the public surface of the reference's zephyr/backend/base.py:11-109
-(grid geometry, free-surface flags, linear/vector index maps).
+A copy of ``zephyr_tpu.backend.base`` (numpy only), mirroring the public
+surface of the reference's zephyr/backend/base.py:11-149 (grid geometry,
+free-surface flags, linear/vector index maps, and Thomsen-parameter
+fields).
 '''
 
 import numpy as np
@@ -97,3 +98,40 @@ class BaseModelDependent(AttributeMapper):
                              np.mod(lind, self.nx),
                              np.mod(lind, self.ny * self.nx)]).T
         return np.array([lind // self.nx, np.mod(lind, self.nx)]).T
+
+
+class BaseAnisotropic(BaseModelDependent):
+    '''
+    Mixin providing Thomsen-parameter fields theta (tilt), eps, delta;
+    scalars are broadcast over the grid, defaults are zero.
+    Parity: reference zephyr/backend/base.py:112-149.
+    '''
+
+    initMap = {
+    #   Argument        Required    Rename as ...   Store as type
+        'theta':        (False,     '_theta',       np.float64),
+        'eps':          (False,     '_eps',         np.float64),
+        'delta':        (False,     '_delta',       np.float64),
+    }
+
+    def _anisoField(self, name):
+        value = getattr(self, name, None)
+        if value is None:
+            value = np.zeros((self.nz, self.nx))
+            setattr(self, name, value)
+        if isinstance(value, np.ndarray) and value.ndim >= 2:
+            return value
+        return np.asarray(value, dtype=np.float64) \
+            * np.ones((self.nz, self.nx), dtype=np.float64)
+
+    @property
+    def theta(self):
+        return self._anisoField('_theta')
+
+    @property
+    def eps(self):
+        return self._anisoField('_eps')
+
+    @property
+    def delta(self):
+        return self._anisoField('_delta')

@@ -10,10 +10,10 @@ matrix-free coefficient-plane tensor and ``Ainv`` the prepared operator
 (planes, multigrid hierarchy, stratified solve), cached per instance and
 droppable via ``del obj.factors``.
 
-Nothing picks the device by itself: the ``device`` config key (default
-'cpu') places the planes, the prepared operator and the solve, and
-``dtype`` (default complex128 on the CPU, complex64 on CUDA) sets their
-precision.
+The ``device`` config key places the planes, the prepared operator and
+the solve; it defaults to 'cuda' and raises without a card (pass
+'device': 'cpu' for the CPU). ``dtype`` (default complex64 on CUDA,
+complex128 on the CPU) sets their precision.
 '''
 
 import numpy as np
@@ -22,6 +22,7 @@ import torch
 
 from ..solver.helmholtz import (prepare_operator, resolve_panels,
                                 resolve_solver_config, solve_batched)
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from .base import BaseModelDependent
 
 _DTYPES = {'complex64': torch.complex64, 'complex128': torch.complex128}
@@ -49,8 +50,8 @@ class BaseDiscretization(BaseModelDependent):
 
     @property
     def device(self):
-        'The torch device of the operator and the solve (default cpu).'
-        return torch.device(getattr(self, '_device', 'cpu'))
+        'The torch device of the operator and the solve (default cuda).'
+        return resolve_device(getattr(self, '_device', DEFAULT_DEVICE))
 
     @property
     def dtype(self):

@@ -3,16 +3,17 @@ Source- and receiver-generating routines for zephyr_tpu_torch.
 
 A copy of ``zephyr_tpu.backend.source`` (numpy/scipy only): SimpleSource
 nearest-gridpoint deltas, and Hicks (2002) Kaiser-windowed sinc
-interpolation with free-surface image mirroring (reference
-zephyr/backend/source.py:31-322). Geometry preprocessing happens once on
-the host; ``.stamps(sLocs)`` gives the flat (rows, cols, vals) arrays
-that ``zephyr_tpu_torch.ops.kaiser`` injects and extracts on the device.
+interpolation with free-surface image mirroring and its anisotropic
+variant (reference zephyr/backend/source.py:31-351). Geometry
+preprocessing happens once on the host; ``.stamps(sLocs)`` gives the
+flat (rows, cols, vals) arrays that ``zephyr_tpu_torch.ops.kaiser``
+injects and extracts on the device.
 '''
 
 import numpy as np
 import scipy.sparse as sp
 
-from .base import BaseModelDependent
+from .base import BaseModelDependent, BaseAnisotropic
 
 #: Kaiser b parameter per half-width (Hicks 2002, Table 1; reference
 #: source.py:138-149)
@@ -248,3 +249,25 @@ class SparseKaiserSource(SimpleSource):
         q = sp.coo_matrix((vals, (rows, cols)), shape=(N, M),
                           dtype=np.complex128)
         return q.T
+
+
+class AnisotropicKaiserSource(SparseKaiserSource, BaseAnisotropic):
+    '''
+    Kaiser source with the sinc-sampling grid skewed by the local Thomsen
+    parameters (reference source.py:337-351).
+    '''
+
+    def modifyGrid(self, Zi, Xi, aZi, aXi):
+
+        theta = self.theta[aZi, aXi]
+        epsilon = self.eps[aZi, aXi]
+        delta = self.delta[aZi, aXi]
+
+        root = np.sqrt(1 + 2 * delta)
+        wx = (1. + 2 * epsilon + root) / (1 + epsilon + root)
+        wz = (1. + root) / (1 + epsilon + root)
+
+        Xi = Xi * (wx * np.cos(theta)) + Xi * (wz * np.sin(theta))
+        Zi = Zi * (wx * np.sin(theta)) + Zi * (wz * np.cos(theta))
+
+        return Zi, Xi

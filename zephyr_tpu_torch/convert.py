@@ -14,19 +14,21 @@ only and imports neither jax nor the JAX package.
 import numpy as np
 import torch
 
+from .core.device import DEFAULT_DEVICE, resolve_device
 from .solver.helmholtz import HelmholtzOperator
 from .solver.multigrid import MGHierarchy, MGLevel
-from .solver.stratified import StratPCR
+from .solver.stratified import StratPCR, StratPCRBlock
 
 
-def tensor_from_numpy(a, device='cpu'):
+def tensor_from_numpy(a, device=DEFAULT_DEVICE):
     '''
-    A numpy array as a tensor on ``device``. bfloat16 arrays (numpy dtype
-    name 'bfloat16', as ml_dtypes gives them) are carried bit for bit:
-    viewed as 16-bit integers, then as torch.bfloat16 — never through
-    float.
+    A numpy array as a tensor on ``device`` (the card unless 'cpu' is
+    asked for). bfloat16 arrays (numpy dtype name 'bfloat16', as
+    ml_dtypes gives them) are carried bit for bit: viewed as 16-bit
+    integers, then as torch.bfloat16 — never through float.
     '''
 
+    device = resolve_device(device)
     a = np.array(a)     # an owned, writable, contiguous copy
     if a.dtype.name == 'bfloat16':
         t = torch.from_numpy(a.view(np.int16))
@@ -34,12 +36,14 @@ def tensor_from_numpy(a, device='cpu'):
     return torch.from_numpy(a).to(device)
 
 
-def model_from_numpy(c, rho, device='cpu', dtype=torch.complex128):
+def model_from_numpy(c, rho, device=DEFAULT_DEVICE, dtype=torch.complex128):
     '''
     The (c, rho) model arrays as tensors: c complex of ``dtype``, rho real
-    of the matching precision.
+    of the matching precision, on ``device`` (the card unless 'cpu' is
+    asked for).
     '''
 
+    device = resolve_device(device)
     ct = torch.from_numpy(np.asarray(c, dtype=np.complex128)).to(
         device=device, dtype=dtype)
     rt = torch.from_numpy(np.asarray(rho, dtype=np.float64)).to(
@@ -51,15 +55,22 @@ def _opt(a, device):
     return None if a is None else tensor_from_numpy(a, device)
 
 
+def _block_pcr_from_numpy(s, device):
+    'A StratPCRBlock (bf16 factors bit for bit) from a JAX one, or None.'
+    if s is None:
+        return None
+    return StratPCRBlock(*(tensor_from_numpy(a, device)
+                           for a in (s.alphas, s.gammas, s.dinv, s.ldu)))
+
+
 def _hier_from_numpy(h, device):
     'The port\'s MGHierarchy from a JAX one with numpy leaves.'
-    if any(getattr(lv, 'linez', None) is not None for lv in h.levels):
-        raise NotImplementedError('operator_from_numpy: line-smoother '
-                                  '(TTI) levels are not ported')
     levels = tuple(
         MGLevel(tensor_from_numpy(lv.planes, device),
                 tensor_from_numpy(lv.dinv, device),
-                tensor_from_numpy(lv.mask, device))
+                tensor_from_numpy(lv.mask, device),
+                _block_pcr_from_numpy(getattr(lv, 'linez', None), device),
+                _block_pcr_from_numpy(getattr(lv, 'linex', None), device))
         for lv in h.levels)
     piv = h.coarse_piv
     if piv is not None:
@@ -69,15 +80,17 @@ def _hier_from_numpy(h, device):
                        _opt(piv, device), _opt(h.coarse_inv, device))
 
 
-def operator_from_numpy(tree, device='cpu'):
+def operator_from_numpy(tree, device=DEFAULT_DEVICE):
     '''
     The port's HelmholtzOperator from a JAX HelmholtzOperator whose
     leaves went through ``np.asarray``, the transposed hierarchy and
     planes included when the JAX operator was prepared
-    ``with_transpose=True``. A tree that needs an unported path raises
-    NotImplementedError.
+    ``with_transpose=True``, and a block (TTI) operator's block
+    stratified state and line-smoother levels. A tree that needs an
+    unported path raises NotImplementedError.
     '''
 
+    device = resolve_device(device)
     if getattr(tree, 'fft_sinv', None) is not None:
         raise NotImplementedError("operator_from_numpy: fft_mode='2d' "
                                   'symbol solves are not ported')
@@ -85,9 +98,12 @@ def operator_from_numpy(tree, device='cpu'):
     hierT = (None if getattr(tree, 'hierT', None) is None
              else _hier_from_numpy(tree.hierT, device))
     strat = None
-    if tree.strat is not None:
+    if tree.strat is not None and np.ndim(tree.strat.ldu) == 5:
+        # (3, 2, 2, nz, nx): the block family
+        strat = _block_pcr_from_numpy(tree.strat, device)
+    elif tree.strat is not None:
         s = tree.strat
-        if not hasattr(s, 'ldu') or getattr(s, 'dft', None) is not None:
+        if getattr(s, 'dft', None) is not None:
             raise NotImplementedError('operator_from_numpy: only the '
                                       'scalar FFT stratified solve is '
                                       'ported')

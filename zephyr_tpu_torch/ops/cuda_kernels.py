@@ -24,6 +24,7 @@ twins.
     K4 prolong_add_smooth   csrc/k4_prolong_add_smooth.cu
     K5 jacobi_sweep         csrc/k5_jacobi_sweep.cu
     K7 restrict, prolong    csrc/k7_transfer.cu
+    K8 apply_block_stencil  csrc/k8_apply_block_stencil.cu
 '''
 
 import ctypes
@@ -42,7 +43,8 @@ CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'zephyr_tpu_torch_kernels'
 SOURCES = ('k1_apply_stencil.cu', 'k2_presmooth_restrict.cu',
            'k3_pcr_sweep.cu', 'k4_prolong_add_smooth.cu',
-           'k5_jacobi_sweep.cu', 'k7_transfer.cu')
+           'k5_jacobi_sweep.cu', 'k7_transfer.cu',
+           'k8_apply_block_stencil.cu')
 HEADERS = ('zt_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -50,7 +52,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: launches of each kernel since the last ``reset_launches()``
 LAUNCHES = {'apply_stencil': 0, 'presmooth_restrict': 0, 'pcr_sweep': 0,
             'prolong_add_smooth': 0, 'jacobi_sweep': 0, 'restrict': 0,
-            'prolong': 0}
+            'prolong': 0, 'apply_block_stencil': 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -145,6 +147,7 @@ def _load():
             'zt_jacobi_sweep': [P, P, P, P, P, I, I, I, P],
             'zt_restrict': [P, P, I, I, I, P],
             'zt_prolong': [P, P, I, I, I, I, I, P],
+            'zt_apply_block_stencil': [P, P, P, I, I, I, P],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -364,4 +367,29 @@ def prolong(vc, nz, nx):
     with torch.cuda.device(vc.device):
         _launch('prolong', lib.zt_prolong, vc.data_ptr(), out.data_ptr(),
                 R, nzc, nxc, nz, nx)
+    return out
+
+
+def apply_block_stencil(planes, u):
+    '''
+    K8: the 2x2 block apply (A u)[r] for planes (2, 2, 9, nz, nx) and
+    u (R, 2, nz, nx), complex64.
+    '''
+
+    if not isinstance(u, torch.Tensor) or u.device.type != 'cuda':
+        raise ValueError('CUDA kernels take CUDA tensors')
+    if u.dim() != 4 or u.shape[1] != 2:
+        raise ValueError('expected an (R, 2, nz, nx) batch, got shape %s'
+                         % (tuple(u.shape),))
+    R, _, nz, nx = u.shape
+    if min(R, nz, nx) < 1:
+        raise ValueError('empty batch or grid: %s' % (tuple(u.shape),))
+    dev = u.device
+    _check('u', u, torch.complex64, (R, 2, nz, nx), dev)
+    _check('planes', planes, torch.complex64, (2, 2, 9, nz, nx), dev)
+    lib = _load()
+    out = torch.empty_like(u)
+    with torch.cuda.device(dev):
+        _launch('apply_block_stencil', lib.zt_apply_block_stencil,
+                planes.data_ptr(), u.data_ptr(), out.data_ptr(), R, nz, nx)
     return out

@@ -97,7 +97,8 @@ def apply_stencil(planes, u):
 def apply_block_stencil(planes, u):
     '''
     Apply a block 9-point stencil operator: planes (B, B, 9, nz, nx),
-    u (..., B, nz, nx) -> (..., B, nz, nx), out[i] = sum_j A[i,j] u[j].
+    u (..., B, nz, nx) -> (..., B, nz, nx), out[i] = sum_j A[i,j] u[j]
+    (the plain twin of K8 at B=2).
     '''
 
     B = planes.shape[0]
@@ -357,14 +358,31 @@ def prolong_add_smooth_batched(planes, dinv_eff, mask, b, u, ec):
     return cuda_kernels.prolong_add_smooth(planes, dinv_eff, mask, b, u, ec)
 
 
+def apply_block_stencil_batched(planes, u):
+    '''
+    K8: batched 2x2 block apply, planes (2, 2, 9, nz, nx) shared across
+    the batch, u (R, 2, nz, nx) -> (R, 2, nz, nx). The twin is
+    ``apply_block_stencil``.
+    '''
+
+    if _on_cpu(u):
+        return apply_block_stencil(planes, u)
+    # the x-line sweep's update can leave a field with transposed strides
+    return cuda_kernels.apply_block_stencil(planes.contiguous(),
+                                            u.contiguous())
+
+
 def apply_block_stencil_fast(planes, u):
     '''
     The solver-internal operator apply for block planes (B, B, 9, nz, nx)
-    on a batch u (R, B, nz, nx), through K1. Scalar (B=1) operators only:
-    the 2x2 block apply is kernel K8, not ported yet.
+    on a batch u (R, B, nz, nx): K1 for scalar (B=1) operators, K8 for
+    the 2x2 block (TTI) operators.
     '''
 
-    if planes.shape[0] != 1:
-        raise NotImplementedError('block (B=2) apply needs kernel K8, '
-                                  'not ported yet (ROADMAP Queue 2)')
+    B = planes.shape[0]
+    if B == 2:
+        return apply_block_stencil_batched(planes, u)
+    if B != 1:
+        raise NotImplementedError('block apply: B=%d (the port has B=1 '
+                                  'and B=2)' % B)
     return apply_stencil_batched(planes[0, 0], u[:, 0])[:, None]

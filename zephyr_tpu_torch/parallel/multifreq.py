@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..backend.interpolation import resample_field
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..ops.kaiser import inject
 from ..ops.minizephyr_coeff import minizephyr_planes
 from ..ops.stencil import plane_products, transpose_block_planes
@@ -110,7 +111,8 @@ def fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs,
                             freqBase=0.0, chunk=16, target_gpw=None,
                             src_pos=None, rec_pos=None, cmin=None,
                             dx=1.0, dz=1.0, ireg=4, max_scale=10.0,
-                            grid_quantum=None, grid_min=128, device='cpu',
+                            grid_quantum=None, grid_min=128,
+                            device=DEFAULT_DEVICE,
                             stats=None, **plane_kwargs):
     '''
     Production-scale FWI misfit + gradient: host-driven per-frequency
@@ -126,7 +128,8 @@ def fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs,
     through the differentiable plane construction (``minizephyr_planes``).
     The same signature and semantics as
     ``zephyr_tpu.parallel.multifreq.fwi_misfit_grad_chunked``
-    plus the device of the solves (``device``) and an optional ``stats``
+    plus the device of the solves (``device``, the card unless the
+    caller passes 'cpu') and an optional ``stats``
     dict that receives the per-frequency grids, the (forward, adjoint)
     iteration counts of every source chunk and the host seconds of each
     phase.
@@ -146,7 +149,7 @@ def fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs,
     Returns (misfit, grad) as (float, (nz, nx) real numpy array).
     '''
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     c = np.asarray(c)
     adapted = target_gpw is not None
     if adapted:

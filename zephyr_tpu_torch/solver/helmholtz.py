@@ -1,12 +1,15 @@
 '''
 The zephyr_tpu_torch Helmholtz solve: the port of
-``zephyr_tpu.solver.helmholtz`` for scalar operators.
+``zephyr_tpu.solver.helmholtz`` for scalar (B=1) operators and, forward
+only, for the 2x2 block (B=2) Eurus TTI operators.
 
 A prepared operator (``prepare_operator``) holds the coefficient planes,
 the multigrid hierarchy of the complex-shifted operator, the precomputed
 stratified interior solve, the Galerkin-coarsened true planes and, with
-``with_transpose=True``, the transposed planes and hierarchy. The solve
-is BiCGStab preconditioned by one of:
+``with_transpose=True``, the transposed planes and hierarchy. The Krylov
+method is BiCGStab for scalar operators and restarted GMRES for block
+ones (``krylov='auto'``; 'bicgstab', 'gmres' and 'fgmres' on request). A
+scalar solve is preconditioned by one of:
 
 - the fused hybrid cycle (``hybrid_comp='fused'``, ``fft_scale=2``): fine
   pre-smooth and restrict (K2), the stratified PCR interior solve at half
@@ -20,11 +23,18 @@ is BiCGStab preconditioned by one of:
   V-cycle (K2, K4 and at ``mg_nu2=2`` K5 per level);
 - one V-cycle (``precond='mg'``).
 
+A block solve's hybrid preconditioner is always 'mult' at full
+resolution: the block stratified PCR interior solve built from the fine
+planes (cuFFT and plain torch), the residual against the true operator
+(K8) and one V-cycle smoothed by alternating z/x lines (K8 for every
+residual, K7 for the transfers, plain-torch block PCR for the lines).
+
 ``solve``/``solve_batched`` are differentiable (``torch.autograd``) with
 respect to the planes and the right-hand side, as
 ``lax.custom_linear_solve`` makes them in the JAX package: the backward
 runs one transpose solve with the transpose preconditioner (the fused
-cycle falls back to 'mult' there, which runs K7).
+cycle falls back to 'mult' there, which runs K7). The backward of a
+block (TTI) solve is not ported yet and raises.
 
 Configurations whose path needs a part that is not ported yet raise
 NotImplementedError naming it, on every device.
@@ -37,13 +47,21 @@ import torch
 
 from ..ops.stencil import (apply_block_stencil_fast, plane_products,
                            transpose_block_planes)
-from .krylov import bicgstab, _norm
+from .krylov import (bicgstab, fgmres, fgmres_cycle, gmres, gmres_cycle,
+                     _norm)
 from .multigrid import (build_hierarchy, v_cycle, presmooth_restrict,
                         prolong_add_smooth, _mask_ring_planes, _ring_mask,
                         _fix_empty_rows, galerkin_coarsen, restrict, prolong,
                         transpose_hierarchy)
-from .stratified import (stratified_coeffs, pcr_precompute, stratified_apply,
-                         transpose_pcr)
+from .stratified import (stratified_coeffs, pcr_precompute,
+                         stratified_apply, transpose_pcr,
+                         stratified_coeffs_block, pcr_precompute_block,
+                         stratified_apply_block)
+
+#: the ROADMAP item that ports the backward of block (TTI) solves
+TTI_GRADIENTS = ('TTI gradients (the transposed block stratified solve '
+                 'and block plane products) are not ported yet: ROADMAP '
+                 'Queue 1, item 8b')
 
 
 class SolverConfig(NamedTuple):
@@ -89,23 +107,27 @@ def check_config(config, block_size=1):
     def no(what, why):
         raise NotImplementedError('%s: %s' % (what, why))
 
-    if block_size != 1:
-        no('block (B=2, TTI) operators', 'K8, the line smoother and the '
-           'block stratified family are ROADMAP Slice D')
-    if config.krylov not in ('auto', 'bicgstab'):
-        no('krylov=%r' % (config.krylov,), 'GMRES/FGMRES are not ported '
-           'yet (ROADMAP Slice D)')
+    if block_size not in (1, 2):
+        no('block size B=%d' % block_size, 'the port has scalar (B=1) and '
+           '2x2 block (B=2, TTI) operators')
+    if config.krylov not in ('auto', 'bicgstab', 'gmres', 'fgmres'):
+        no('krylov=%r' % (config.krylov,), "use 'auto', 'bicgstab', "
+           "'gmres' or 'fgmres'")
     if config.mg_coarse not in ('inv', 'lu'):
         no('mg_coarse=%r' % (config.mg_coarse,), "the port has 'inv' and "
            "'lu' coarse solves")
-    if config.mg_nu1 not in (1, 2):
-        no('mg_nu1=%d' % config.mg_nu1, 'the downstroke kernel K2 takes 1 '
-           'or 2 sweeps; more need the two-sweep kernel K6 (ROADMAP Queue '
-           '2); zero sweeps are not ported')
-    if config.mg_nu2 not in (1, 2):
-        no('mg_nu2=%d' % config.mg_nu2, 'the upstroke runs K4 and at most '
-           'one K5 sweep; more need the two-sweep kernel K6 (ROADMAP '
-           'Queue 2); zero sweeps are not ported')
+    if config.mg_smoother not in ('auto', 'line', 'jacobi'):
+        no('mg_smoother=%r' % (config.mg_smoother,), "use 'auto', 'line' "
+           "or 'jacobi'")
+    if block_size == 1:
+        if config.mg_nu1 not in (1, 2):
+            no('mg_nu1=%d' % config.mg_nu1, 'the downstroke kernel K2 '
+               'takes 1 or 2 sweeps; more need the two-sweep kernel K6 '
+               '(ROADMAP Queue 2); zero sweeps are not ported')
+        if config.mg_nu2 not in (1, 2):
+            no('mg_nu2=%d' % config.mg_nu2, 'the upstroke runs K4 and at '
+               'most one K5 sweep; more need the two-sweep kernel K6 '
+               '(ROADMAP Queue 2); zero sweeps are not ported')
     if config.precond == 'mg':
         return
     if config.precond != 'hybrid':
@@ -119,6 +141,10 @@ def check_config(config, block_size=1):
     if config.fft_scale not in (1, 2):
         no('fft_scale=%r' % (config.fft_scale,), 'the spectral solve runs '
            'at full (1) or half (2) resolution')
+    if block_size == 2:
+        # the block family ignores the x-panel and DFT options, as in the
+        # JAX package
+        return
     if config.strat_panels > 1:
         no('strat_panels=%d' % config.strat_panels, 'the x-panel family '
            'is not ported yet (ROADMAP Queue 1: x-panels)')
@@ -189,7 +215,8 @@ class HelmholtzOperator(NamedTuple):
 
     planes: Any            # (B, B, 9, nz, nx)
     hier: Any              # MGHierarchy of the shifted operator
-    strat: Any = None      # StratPCR (precond='hybrid')
+    strat: Any = None      # StratPCR, or StratPCRBlock at B=2
+                           # (precond='hybrid')
     cplanes: Any = None    # (B, B, 9, nzc, nxc) (hybrid_comp='fused')
     hierT: Any = None      # MGHierarchy of the transposed shifted operator
     planesT: Any = None    # (B, B, 9, nz, nx) transposed true planes
@@ -207,18 +234,33 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
     planes that the backward of ``solve`` needs. Everything but the
     planes themselves is built from detached tensors: the preconditioner
     takes no part in differentiation.
+
+    Block (B=2) operators smooth with alternating z/x lines unless
+    ``mg_smoother='jacobi'``, and their stratified solve is the block
+    family built from the FINE planes at every ``fft_scale`` (the JAX
+    package measured the Galerkin-coarsened block symbol to stall the
+    outer iteration), so there is no coarsened true operator and the
+    fused composition falls through to 'mult'.
     '''
 
-    check_config(config, planes.shape[0])
+    B = planes.shape[0]
+    check_config(config, B)
     if precond_planes is None:
         precond_planes = planes
     pp = precond_planes.detach()
     tp = planes.detach()
+    smoother = ('line' if B > 1 and config.mg_smoother in ('auto', 'line')
+                else 'jacobi')
     hier = build_hierarchy(pp, min_size=config.mg_min_size,
-                           coarse=config.mg_coarse)
+                           coarse=config.mg_coarse, smoother=smoother)
     hierT = transpose_hierarchy(hier) if with_transpose else None
     if config.precond == 'mg':
         return HelmholtzOperator(planes, hier, hierT=hierT)
+    planesT = transpose_block_planes(tp) if with_transpose else None
+    if B == 2:
+        strat = pcr_precompute_block(*stratified_coeffs_block(
+            tp, pp, config.shift, config.fft_shift))
+        return HelmholtzOperator(planes, hier, strat, None, hierT, planesT)
 
     ctrue = None
     if config.fft_scale > 1 or config.hybrid_comp == 'fused':
@@ -238,14 +280,13 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
     l, d, u = stratified_coeffs(src_true, src_pp, config.shift,
                                 config.fft_shift)
     strat = pcr_precompute(l, d, u)
-    planesT = transpose_block_planes(tp) if with_transpose else None
     cplanes = ctrue if config.hybrid_comp == 'fused' else None
     return HelmholtzOperator(planes, hier, strat, cplanes, hierT, planesT)
 
 
 def _make_precond(op, config, transpose=False):
     '''
-    The preconditioner application r -> M r on a batch (R, 1, nz, nx).
+    The preconditioner application r -> M r on a batch (R, B, nz, nx).
 
     'mg': one V-cycle on the shifted hierarchy.
     'hybrid', hybrid_comp='fused' (forward, two or more levels, spectral
@@ -262,10 +303,14 @@ def _make_precond(op, config, transpose=False):
     parts, P^T + V^T (I - A^T P^T): a preconditioner FOR the transposed
     operator (the JAX package's choice; the fused cycle falls back to
     'mult'). P^T = F T^{-T} F^{-1}, the transposed tridiagonal family
-    reduced once here in full precision.
+    reduced once here in full precision. Block operators have no
+    transpose preconditioner yet (TTI gradients).
     '''
 
+    is_block = op.planes.shape[0] == 2
     check_config(config, op.planes.shape[0])
+    if transpose and is_block:
+        raise NotImplementedError(TTI_GRADIENTS)
     hier = op.hierT if transpose else op.hier
     if hier is None:
         raise ValueError('operator was prepared with with_transpose=False: '
@@ -285,6 +330,8 @@ def _make_precond(op, config, transpose=False):
     strat = transpose_pcr(op.strat) if transpose else op.strat
 
     def P0(r):
+        if is_block:
+            return stratified_apply_block(strat, r)
         return stratified_apply(strat, r, transpose=transpose)
 
     spec_nz = op.strat.ldu.shape[-2]
@@ -323,14 +370,60 @@ def _make_precond(op, config, transpose=False):
     return M
 
 
+def _effective_krylov(config, block_size):
+    '''
+    Resolve krylov='auto': BiCGStab for scalar (B=1) operators, GMRES for
+    block systems (BiCGStab's short recurrence diverges on the Eurus TTI
+    2x2 system in complex64; restarted GMRES is monotone).
+    '''
+
+    if config.krylov != 'auto':
+        return config.krylov
+    return 'gmres' if block_size > 1 else 'bicgstab'
+
+
+def _inner_precond(matvec, M, config):
+    '''
+    The FGMRES variable preconditioner: ``fgmres_inner`` steps of inner
+    GMRES on the same operator, preconditioned by the base M (0: M
+    itself). Nonlinear in r, so legal only inside flexible GMRES.
+    '''
+
+    inner = int(config.fgmres_inner)
+    if inner <= 0:
+        return M
+
+    def Mv(r):
+        return gmres_cycle(matvec, r, M=M, m=inner).x
+    return Mv
+
+
+def _krylov_solve(matvec, b, M, config, block_size):
+    '''
+    One Krylov run of the configured method on a batch b (R, B, nz, nx)
+    to ``config.tol``: BicgstabResult(x, iters (R,), relres (R,)).
+    '''
+
+    krylov = _effective_krylov(config, block_size)
+    if krylov == 'fgmres':
+        return fgmres(matvec, b, M=_inner_precond(matvec, M, config),
+                      tol=config.tol, maxiter=config.maxiter,
+                      restart=config.gmres_restart)
+    if krylov == 'gmres':
+        return gmres(matvec, b, M=M, tol=config.tol,
+                     maxiter=config.maxiter, restart=config.gmres_restart)
+    return bicgstab(matvec, b, M=M, tol=config.tol, maxiter=config.maxiter)
+
+
 class _LinearSolve(torch.autograd.Function):
     '''
-    x = A(planes)^{-1} b by preconditioned BiCGStab, with the implicit
-    adjoint of ``lax.custom_linear_solve``. Torch hands the backward
-    g = dL/d conj(x); the cotangent of b is w = A^{-H} g =
-    conj(A^{-T} conj(g)), one transpose solve with the transpose
-    preconditioner, and that of the planes is
-    -sum_r w_r[i] conj(x_r[i + s_k]).
+    x = A(planes)^{-1} b by the preconditioned Krylov method of the
+    config, with the implicit adjoint of ``lax.custom_linear_solve``.
+    Torch hands the backward g = dL/d conj(x); the cotangent of b is
+    w = A^{-H} g = conj(A^{-T} conj(g)), one transpose solve with the
+    transpose preconditioner, and that of the planes is
+    -sum_r w_r[i] conj(x_r[i + s_k]). Block (TTI) operators have no
+    backward yet.
     '''
 
     @staticmethod
@@ -344,12 +437,15 @@ class _LinearSolve(torch.autograd.Function):
     def backward(ctx, g):
         x, = ctx.saved_tensors
         op, config = ctx.op, ctx.config
+        if op.planes.shape[0] != 1:
+            raise NotImplementedError('backward of a block (B=2) solve: '
+                                      + TTI_GRADIENTS)
         MT = _make_precond(op, config, transpose=True)
         planesT = transpose_block_planes(op.planes.detach())
         # conj_physical: the kernels read raw memory, never a conj view
-        w = bicgstab(lambda v: apply_block_stencil_fast(planesT, v),
-                     g.conj_physical(), M=MT, tol=config.tol,
-                     maxiter=config.maxiter).x.conj_physical()
+        w = _krylov_solve(lambda v: apply_block_stencil_fast(planesT, v),
+                          g.conj_physical(), MT, config,
+                          1).x.conj_physical()
         gp = None
         if ctx.needs_input_grad[0]:
             gp = -plane_products(w[:, 0], x[:, 0].conj())[None, None]
@@ -360,8 +456,9 @@ class _LinearSolve(torch.autograd.Function):
 def solve_batched(op, b, config=SolverConfig()):
     '''
     Solve A x = b for a batch b (R, B, nz, nx) to ``config.tol``;
-    differentiable with respect to ``op.planes`` and ``b`` (the backward
-    needs an operator prepared ``with_transpose=True``).
+    differentiable with respect to ``op.planes`` and ``b`` for scalar
+    operators (the backward needs an operator prepared
+    ``with_transpose=True``).
     '''
 
     return _LinearSolve.apply(op.planes, b, op, config)
@@ -379,31 +476,33 @@ def solve(op, b, config=SolverConfig()):
 def solve_info(op, b, config=SolverConfig()):
     '''
     Forward solve of a batch b (R, B, nz, nx) to ``config.tol`` in one
-    BiCGStab run. Returns (x, iters (R,), relres (R,)). Not
-    differentiable.
+    run of the configured Krylov method. Returns (x, iters (R,), relres
+    (R,)). Not differentiable.
     '''
 
     def mv(x):
         return apply_block_stencil_fast(op.planes, x)
 
-    M = _make_precond(op, config)
-    res = bicgstab(mv, b, M=M, tol=config.tol, maxiter=config.maxiter)
+    res = _krylov_solve(mv, b, _make_precond(op, config), config,
+                        op.planes.shape[0])
     return res.x, res.iters, res.relres
 
 
 def make_chunked_solver(config=SolverConfig(), chunk=64):
     '''
     Host-driven restarted solve: BiCGStab runs in chunks of at most
-    ``chunk`` iterations; between chunks the TRUE residual is recomputed
-    and the iteration restarts from the current iterate (which removes
-    the recursive-residual drift of single-precision BiCGStab).
+    ``chunk`` iterations (GMRES and FGMRES in one cycle of ``chunk``
+    Arnoldi steps); between chunks the TRUE residual is recomputed and
+    the iteration restarts from the current iterate (which removes the
+    recursive-residual drift of single-precision BiCGStab).
 
-    Returns ``solve(op, b_batch, max_chunks=None) -> (x, iters, relres)``
-    with b_batch (R, B, nz, nx) a tensor on the operator's device, iters
-    the summed per-chunk maximum iteration count and relres the worst
-    true relative residual over the batch.
+    Returns ``solve(op, b_batch, max_chunks=None, trace=None) -> (x,
+    iters, relres)`` with b_batch (R, B, nz, nx) a tensor on the
+    operator's device, iters the summed per-chunk maximum iteration count
+    and relres the worst true relative residual over the batch; a
+    ``trace`` list receives each chunk's (iterations, worst relres).
 
-    The chunk tolerance is rescaled so the stop target stays
+    The BiCGStab chunk tolerance is rescaled so the stop target stays
     tol * ||b|| globally (with a 0.7 margin for recursive-vs-true residual
     drift). If a restart makes the true residual non-finite or more than
     4x worse than the best so far, the best iterate is kept; a non-finite
@@ -419,16 +518,24 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
 
         r = b - mv(x)
         bnorm0 = _norm(b)
-        rnorm = _norm(r)
-        tiny = torch.finfo(rnorm.dtype).tiny
-        tol_c = margin * config.tol * bnorm0 / torch.clamp(rnorm, min=tiny)
-        res = bicgstab(mv, r, M=M, tol=tol_c, maxiter=chunk)
+        krylov = _effective_krylov(config, b.shape[-3])
+        if krylov == 'fgmres':
+            res = fgmres_cycle(mv, r, M=_inner_precond(mv, M, config),
+                               m=chunk)
+        elif krylov == 'gmres':
+            res = gmres_cycle(mv, r, M=M, m=chunk)
+        else:
+            rnorm = _norm(r)
+            tiny = torch.finfo(rnorm.dtype).tiny
+            tol_c = (margin * config.tol * bnorm0
+                     / torch.clamp(rnorm, min=tiny))
+            res = bicgstab(mv, r, M=M, tol=tol_c, maxiter=chunk)
         x = x + res.x
         bnorm = torch.where(bnorm0 > 0, bnorm0, torch.ones_like(bnorm0))
         rr = _norm(b - mv(x)) / bnorm
         return x, torch.max(rr), torch.max(res.iters)
 
-    def solve_chunked(op, b_batch, max_chunks=None):
+    def solve_chunked(op, b_batch, max_chunks=None, trace=None):
         if max_chunks is None:
             max_chunks = max(1, config.maxiter // chunk)
         M = _make_precond(op, config)
@@ -440,6 +547,8 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
             x_new, rr, its = chunk_step(op, b_batch, x, M)
             worst = float(rr)
             iters += int(its)
+            if trace is not None:
+                trace.append((int(its), worst))
             if not np.isfinite(worst) or (best is not None
                                           and worst > 4.0 * best[1]):
                 # the restart made the TRUE residual materially worse or

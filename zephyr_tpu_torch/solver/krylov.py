@@ -1,13 +1,14 @@
 '''
-Batched right-preconditioned BiCGStab for zephyr_tpu_torch.
+Batched Krylov solvers for zephyr_tpu_torch: right-preconditioned
+BiCGStab, restarted GMRES and flexible GMRES.
 
-The port of ``zephyr_tpu.solver.krylov.bicgstab`` with the right-hand-side
-batch as an explicit leading axis: fields are (R, B, nz, nx) and every
-scalar of the recurrence is an (R,) tensor. The JAX package vmaps a
+The port of ``zephyr_tpu.solver.krylov`` with the right-hand-side batch as
+an explicit leading axis: fields are (R, B, nz, nx) and every scalar of a
+recurrence is an (R,) tensor (GMRES's Hessenberg matrix, Givens rotations
+and least-squares right-hand side are per RHS). The JAX package vmaps a
 ``lax.while_loop``; its semantics are reproduced here: the loop runs while
 ANY right-hand side is still active, and a right-hand side whose own
-condition ||r|| > atol, k < maxiter, no breakdown has turned false is
-frozen (its state is no longer updated).
+condition has turned false is frozen (its state is no longer updated).
 '''
 
 from typing import NamedTuple, Any
@@ -123,3 +124,153 @@ def bicgstab(matvec, b, M=None, tol=1e-6, maxiter=1000):
         down = torch.where(act, down_new, down)
         act = active_mask()
     return BicgstabResult(x, k, _norm(r) / bnorm)
+
+
+def gmres_cycle(matvec, b, M=None, x0=None, m=20):
+    '''
+    One cycle of right-preconditioned GMRES(m) on a batch: x = x0 + M V y
+    with V the m-step Arnoldi basis of the preconditioned residual
+    equation, by modified Gram-Schmidt (in the JAX package's order) and
+    Givens rotations. Fixed m steps, no early exit. The basis V is
+    (m + 1, R, B, nz, nx). Returns BicgstabResult(x, iters = m, relres).
+    '''
+
+    return _gmres_cycle(matvec, b, M, x0, m, flexible=False)
+
+
+def fgmres_cycle(matvec, b, M=None, x0=None, m=20):
+    '''
+    One cycle of flexible GMRES(m) (Saad 1993): the preconditioned
+    directions Z[j] = M(V[j]) are stored (an extra (m, R, B, nz, nx)
+    basis) and the update is x = x0 + Z y, so ``M`` may be a variable
+    (nonlinear) operator such as an inner Krylov sweep.
+    '''
+
+    return _gmres_cycle(matvec, b, M, x0, m, flexible=True)
+
+
+def _gmres_cycle(matvec, b, M, x0, m, flexible):
+    if M is None:
+        M = lambda r: r
+    R = b.shape[0]
+    cdtype = b.dtype
+    dev = b.device
+    x0 = torch.zeros_like(b) if x0 is None else x0
+    r0 = b - matvec(x0)
+    beta = _norm(r0)
+    safe_beta = torch.where(beta > 0, beta, torch.ones_like(beta))
+    tiny = torch.finfo(beta.dtype).tiny
+
+    V = torch.zeros((m + 1,) + tuple(b.shape), dtype=cdtype, device=dev)
+    V[0] = r0 / _bcast(safe_beta.to(cdtype), r0)
+    Z = (torch.zeros((m,) + tuple(b.shape), dtype=cdtype, device=dev)
+         if flexible else None)
+    H = torch.zeros((R, m + 1, m), dtype=cdtype, device=dev)
+    g = torch.zeros((R, m + 1), dtype=cdtype, device=dev)
+    g[:, 0] = beta.to(cdtype)
+    cs = torch.zeros((R, m), dtype=cdtype, device=dev)
+    sn = torch.zeros((R, m), dtype=cdtype, device=dev)
+    one = torch.ones((), dtype=cdtype, device=dev)
+
+    for j in range(m):
+        z = M(V[j])
+        if flexible:
+            Z[j] = z
+        w = matvec(z)
+        # modified Gram-Schmidt against the basis so far
+        for i in range(j + 1):
+            hij = _dot(V[i], w)
+            w = w - _bcast(hij, w) * V[i]
+            H[:, i, j] = hij
+        hnext = _norm(w).to(cdtype)
+        H[:, j + 1, j] = hnext
+        V[j + 1] = w / _bcast(torch.where(torch.abs(hnext) > tiny, hnext,
+                                          one), w)
+        # the previous Givens rotations, applied to the new column
+        for i in range(j):
+            hi, hi1 = H[:, i, j], H[:, i + 1, j]
+            h1 = cs[:, i].conj() * hi + sn[:, i].conj() * hi1
+            h2 = -sn[:, i] * hi + cs[:, i] * hi1
+            H[:, i, j] = h1
+            H[:, i + 1, j] = h2
+        # the new rotation, zeroing H[j + 1, j]
+        h0, h1 = H[:, j, j], H[:, j + 1, j]
+        denom = torch.sqrt(torch.abs(h0) ** 2 + torch.abs(h1) ** 2)
+        denom = torch.where(denom > tiny, denom,
+                            torch.ones_like(denom)).to(cdtype)
+        c_j, s_j = h0 / denom, h1 / denom
+        cs[:, j], sn[:, j] = c_j, s_j
+        H[:, j, j] = c_j.conj() * h0 + s_j.conj() * h1
+        H[:, j + 1, j] = 0
+        gj = g[:, j]
+        g[:, j + 1] = -s_j * gj
+        g[:, j] = c_j.conj() * gj
+
+    # back-substitute the m x m upper-triangular system H y = g
+    y = torch.zeros((R, m), dtype=cdtype, device=dev)
+    for j in range(m - 1, -1, -1):
+        acc = torch.zeros((R,), dtype=cdtype, device=dev)
+        for i in range(j + 1, m):
+            acc = acc + H[:, j, i] * y[:, i]
+        hjj = H[:, j, j]
+        hjj = torch.where(torch.abs(hjj) > tiny, hjj, one)
+        y[:, j] = (g[:, j] - acc) / hjj
+
+    if flexible:
+        x = x0
+        for j in range(m):
+            x = x + _bcast(y[:, j], x) * Z[j]
+    else:
+        zsum = torch.zeros_like(b)
+        for j in range(m):
+            zsum = zsum + _bcast(y[:, j], zsum) * V[j]
+        x = x0 + M(zsum)
+    r = b - matvec(x)
+    bnorm = _norm(b)
+    bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    iters = torch.full((R,), m, dtype=torch.int32, device=dev)
+    return BicgstabResult(x, iters, _norm(r) / bnorm)
+
+
+def _restarted(cycle, matvec, b, M, tol, maxiter, restart):
+    '''
+    Full ``cycle``s until the true residual of every right-hand side meets
+    ``tol`` or its cycle budget maxiter // restart is spent; a right-hand
+    side that has converged keeps its iterate while the others cycle on.
+    Returns BicgstabResult(x, cycles * restart, relres).
+    '''
+
+    ncycles = max(1, maxiter // restart)
+    bnorm = _norm(b)
+    bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    x = torch.zeros_like(b)
+    rr = _norm(b - matvec(x)) / bnorm
+    k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+    while True:
+        act = (rr > tol) & (k < ncycles)
+        if not bool(act.any()):     # the one host sync of a cycle
+            break
+        res = cycle(matvec, b, M=M, x0=x, m=restart)
+        x = torch.where(_bcast(act, x), res.x, x)
+        rr = torch.where(act, res.relres, rr)
+        k = torch.where(act, k + 1, k)
+    return BicgstabResult(x, k * restart, rr)
+
+
+def gmres(matvec, b, M=None, tol=1e-6, maxiter=1000, restart=40):
+    '''
+    Restarted GMRES built from ``gmres_cycle``: full cycles until the true
+    residual meets tol or the matvec budget is spent (``iters`` counts
+    cycles x restart).
+    '''
+
+    return _restarted(gmres_cycle, matvec, b, M, tol, maxiter, restart)
+
+
+def fgmres(matvec, b, M=None, tol=1e-6, maxiter=1000, restart=40):
+    '''
+    Restarted flexible GMRES built from ``fgmres_cycle``; ``maxiter``
+    counts outer Arnoldi steps, as in ``gmres``.
+    '''
+
+    return _restarted(fgmres_cycle, matvec, b, M, tol, maxiter, restart)

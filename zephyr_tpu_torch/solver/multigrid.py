@@ -1,14 +1,20 @@
 '''
 Geometric multigrid with Galerkin (RAP) coarse operators, matrix-free.
 
-The port of ``zephyr_tpu.solver.multigrid`` for scalar (B=1) operators:
+The port of ``zephyr_tpu.solver.multigrid`` for scalar (B=1) and 2x2
+block (B=2, TTI) operators:
 
 - coarse-grid operators by exact stencil-space Galerkin coarsening R A P
   (full-weighting restriction, bilinear prolongation), which stays within
   the 9-point stencil class;
-- damped Jacobi smoothing, fused into the level's downstroke (kernel K2)
-  and upstroke (kernel K4), with a second post-smoothing sweep (K5) at
-  nu2 = 2;
+- scalar levels: damped Jacobi smoothing, fused into the level's
+  downstroke (kernel K2) and upstroke (kernel K4), with a second
+  post-smoothing sweep (K5) at nu2 = 2;
+- block levels: alternating z/x line smoothing (``smoother='line'``,
+  exact damped solves of the tridiagonal band splittings by precomputed
+  block PCR) or damped block-Jacobi, each sweep's residual through the
+  block apply (kernel K8), the residual restricted and the correction
+  prolonged by K7;
 - standalone full-weighting restriction and bilinear prolongation
   (kernel K7) for the reduced-resolution spectral solve;
 - the hierarchy of the transposed operator (``transpose_hierarchy``);
@@ -24,8 +30,10 @@ from typing import NamedTuple, Any
 import torch
 
 from ..ops import cuda_kernels, stencil
-from ..ops.stencil import (block_diag, invert_block_diag,
+from ..ops.stencil import (apply_block_stencil_fast, block_diag,
+                           block_diag_matvec, invert_block_diag,
                            planes_to_dense_torch, shift2d)
+from .stratified import pcr_apply_block, pcr_precompute_block
 
 #: per-axis prolongation weights for offsets (-1, 0, +1)
 _W = (0.5, 1.0, 0.5)
@@ -161,6 +169,9 @@ class MGLevel(NamedTuple):
     planes: Any   # (B, B, 9, nz, nx)
     dinv: Any     # (B, B, nz, nx)
     mask: Any     # (nz, nx) interior mask: 0 on the boundary ring
+    linez: Any = None  # StratPCRBlock of the z-line bands
+    linex: Any = None  # StratPCRBlock of the x-line bands (axes swapped);
+                       # present iff smoother='line' on a block level
 
 
 class MGHierarchy(NamedTuple):
@@ -217,6 +228,23 @@ def _fix_empty_rows(planes):
     return out
 
 
+def _line_pcr_states(planes, delta=1e-6):
+    '''
+    Precomputed block cyclic-reduction states of the z-line and x-line
+    band splittings of a block operator, the alternating-line smoother's
+    tridiagonal factors: the z bands are the (dz in {-1, 0, 1}, dx = 0)
+    planes 1/4/7 with their true per-point coefficients, the x bands the
+    (dz = 0, dx in {-1, 0, 1}) planes 3/4/5 with the grid axes swapped.
+    complex64 factors are bf16-packed (the JAX package's defaults: clamp
+    1e-6, quantised, both axes).
+    '''
+
+    linez = pcr_precompute_block(planes[:, :, 1], planes[:, :, 4],
+                                 planes[:, :, 7], delta=delta)
+    xb = [planes[:, :, k].transpose(-1, -2) for k in (3, 4, 5)]
+    return linez, pcr_precompute_block(*xb, delta=delta)
+
+
 def build_hierarchy(planes, min_size=16, max_levels=16, coarse='lu',
                     smoother='jacobi'):
     '''
@@ -225,12 +253,15 @@ def build_hierarchy(planes, min_size=16, max_levels=16, coarse='lu',
     (coarse='inv') or LU-factorizes (coarse='lu') the coarsest dense
     operator. Boundary-ring dofs are excluded from the coarse-grid
     correction at every level.
+
+    ``smoother='line'`` precomputes per-level alternating z/x line
+    states for block (B > 1) operators; scalar operators always smooth
+    with the fused Jacobi kernels, so there it is the same as 'jacobi'.
     '''
 
-    if smoother != 'jacobi':
-        raise NotImplementedError(
-            "build_hierarchy: smoother=%r belongs to the block (TTI) "
-            "path, not ported yet (ROADMAP Slice D)" % (smoother,))
+    if smoother not in ('jacobi', 'line'):
+        raise ValueError("build_hierarchy: smoother must be 'jacobi' or "
+                         "'line', got %r" % (smoother,))
     if coarse not in ('inv', 'lu'):
         raise NotImplementedError(
             "build_hierarchy: coarse=%r; the port has 'inv' and 'lu' "
@@ -242,7 +273,10 @@ def build_hierarchy(planes, min_size=16, max_levels=16, coarse='lu',
         nz, nx = current.shape[-2:]
         mask = _ring_mask(nz, nx, rdtype, planes.device)
         dinv = invert_block_diag(block_diag(current))
-        levels.append(MGLevel(current, dinv, mask))
+        linez = linex = None
+        if smoother == 'line' and current.shape[0] > 1:
+            linez, linex = _line_pcr_states(current)
+        levels.append(MGLevel(current, dinv, mask, linez, linex))
         if min(nz, nx) <= min_size:
             break
         masked = _mask_ring_planes(current, mask)
@@ -277,20 +311,53 @@ def _coarse_solve(hier, b):
     return x.contiguous().reshape(b.shape)
 
 
-def _check_scalar(lvl):
-    if lvl.planes.shape[0] != 1:
-        raise NotImplementedError('V-cycle: block (B=2) levels need the '
-                                  'line smoother and K8, not ported yet')
+#: damping of the alternating-line smoother (the JAX package's measured
+#: choice: 1.0 diverges on layered TTI, 0.8 converges fastest)
+LINE_OMEGA = 0.8
+
+
+def _smooth(lvl, u, b, omega, nsweeps):
+    '''
+    ``nsweeps`` damped smoothing sweeps of a block level, each residual
+    through the block apply (K8 on the card): alternating z/x line
+    sweeps (damped by LINE_OMEGA) when the level carries line states,
+    else damped block-Jacobi.
+    '''
+
+    for _ in range(nsweeps):
+        r = b - apply_block_stencil_fast(lvl.planes, u)
+        if lvl.linez is None:
+            u = u + omega * block_diag_matvec(lvl.dinv, r)
+            continue
+        u = u + LINE_OMEGA * pcr_apply_block(lvl.linez, r)
+        r = b - apply_block_stencil_fast(lvl.planes, u)
+        du = pcr_apply_block(lvl.linex, r.transpose(-1, -2))
+        u = u + LINE_OMEGA * du.transpose(-1, -2)
+    return u
+
+
+def presmooth_residual(lvl, b, omega, nu1):
+    '''
+    The downstroke of a block level before the transfer: nu1 smoothing
+    sweeps from zero and the masked residual (u, mask * (b - A u)).
+    '''
+
+    u = _smooth(lvl, torch.zeros_like(b), b, omega, nu1)
+    return u, lvl.mask * (b - apply_block_stencil_fast(lvl.planes, u))
 
 
 def presmooth_restrict(lvl, b, omega, nu1):
     '''
-    The complete downstroke of a scalar level: nu1 (1 or 2) damped-Jacobi
-    sweeps from zero, the masked residual and its restriction, as one
-    kernel (K2). Returns (u, rc) with u (R, 1, nz, nx).
+    The complete downstroke of a level, (u, restrict(mask * residual)).
+    A scalar level runs nu1 (1 or 2) damped-Jacobi sweeps from zero, the
+    masked residual and its restriction as one kernel (K2); a block level
+    runs ``presmooth_residual`` and the restriction K7. Returns (u, rc)
+    with u (R, B, nz, nx).
     '''
 
-    _check_scalar(lvl)
+    if lvl.planes.shape[0] != 1:
+        u, rm = presmooth_residual(lvl, b, omega, nu1)
+        return u, restrict(rm)
     u0, rc = stencil.presmooth_restrict_batched(
         lvl.planes[0, 0], omega * lvl.dinv[0, 0], lvl.mask, b[:, 0], nu1)
     return u0[:, None], rc[:, None]
@@ -298,13 +365,18 @@ def presmooth_restrict(lvl, b, omega, nu1):
 
 def prolong_add_smooth(lvl, u, b, ec, omega, nu2):
     '''
-    The upstroke of a scalar level: u + mask * prolong(ec) and the first
-    damped post-smoothing sweep as one kernel (K4), then at nu2 = 2 one
-    more sweep (K5). Three or more sweeps run the two-sweep kernel K6,
-    which is not ported yet.
+    The upstroke of a level: u + mask * prolong(ec), then nu2 damped
+    post-smoothing sweeps. A scalar level runs the prolongation, the
+    masked add and the first sweep as one kernel (K4), then at nu2 = 2
+    one more sweep (K5); three or more sweeps run the two-sweep kernel
+    K6, which is not ported yet. A block level prolongs with K7 and
+    smooths with ``_smooth``.
     '''
 
-    _check_scalar(lvl)
+    if lvl.planes.shape[0] != 1:
+        nz, nx = b.shape[-2:]
+        return _smooth(lvl, u + lvl.mask * prolong(ec, nz, nx), b, omega,
+                       nu2)
     if nu2 not in (1, 2):
         raise NotImplementedError(
             'prolong_add_smooth: mg_nu2=%d; the port runs 1 or 2 '
@@ -338,16 +410,19 @@ def transpose_hierarchy(hier):
     '''
     Hierarchy for the transposed operator. Since R = (1/4) P^T, the Galerkin
     coarse operator of A^T equals the transpose of the coarse operator of A,
-    so each level's planes are simply block-transposed; the coarsest dense
-    inverse is transposed, or its LU re-factorized from the transposed
-    planes.
+    so each level's planes are simply block-transposed (and its line
+    states rebuilt from them); the coarsest dense inverse is transposed,
+    or its LU re-factorized from the transposed planes.
     '''
 
     levels = []
     for lvl in hier.levels:
         planesT = stencil.transpose_block_planes(lvl.planes)
+        linez = linex = None
+        if lvl.linez is not None:
+            linez, linex = _line_pcr_states(planesT)
         levels.append(MGLevel(planesT, invert_block_diag(block_diag(planesT)),
-                              lvl.mask))
+                              lvl.mask, linez, linex))
     lu, piv, cinv = None, None, None
     if hier.coarse_inv is not None:
         # inverse of the transpose is the transpose of the inverse

@@ -1,7 +1,8 @@
 '''
 Stratified (depth-varying) spectral interior solve for the hybrid
 Helmholtz preconditioner: the port of ``zephyr_tpu.solver.stratified``
-for scalar (B=1) operators, with its transpose.
+for scalar (B=1) operators with its transpose, and the forward block
+(B=2, TTI) family.
 
 Per-ROW mean stencil coefficients over an interior x-window, an FFT in x
 (``torch.fft``, cuFFT on the card), and for every cross-line wavenumber
@@ -18,9 +19,15 @@ family (``stratified_apply(..., transpose=True)``, the transpose solves of
 gradients) is reduced from the stored coefficients in full precision and
 swept in plain torch on every device, as the JAX package does.
 
+The block family (``stratified_coeffs_block``, ``pcr_precompute_block``,
+``stratified_apply_block``) solves a 2x2 block-tridiagonal system per kx
+by the same reduction with pointwise 2x2 block inverses; it runs as
+plain torch on every device, as it does in the JAX package, and also
+serves the multigrid line smoother (``multigrid._line_pcr_states``).
+
 Not ported yet (each raises NotImplementedError): the DFT-matmul
 x-transform (``strat_dft='dft'``), the x-panel family
-(``strat_panels > 1``) and the block (TTI) family.
+(``strat_panels > 1``) and the transposed block family (TTI gradients).
 '''
 
 from typing import NamedTuple, Any
@@ -252,8 +259,8 @@ def stratified_coeffs(planes, precond_planes, shift, fft_shift,
     '''
 
     if planes.shape[0] != 1:
-        raise NotImplementedError('stratified_coeffs: block (TTI) family '
-                                  'not ported yet (ROADMAP Slice D)')
+        raise ValueError('stratified_coeffs: scalar operators only; block '
+                         'operators take stratified_coeffs_block')
     c0 = _per_row_mean(planes)[0, 0]           # (9, nz)
     cP = _per_row_mean(precond_planes)[0, 0]
     cdtype = c0.dtype
@@ -338,3 +345,217 @@ def stratified_apply(strat, r, transpose=False):
     rhat = torch.fft.fft(r[:, 0], dim=-1)
     xhat = pcr_apply(strat, rhat)
     return torch.fft.ifft(xhat, dim=-1)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Block (B = 2) family: the Eurus TTI system is a 2x2 block operator; its
+# stratified interior solve is a block-tridiagonal family per kx, reduced
+# by the same cyclic reduction with pointwise 2x2 block inverses. The
+# factor recurrence spells its complex arithmetic out as the scalar one
+# does, so the bf16 factors match the JAX package's bit for bit.
+# ---------------------------------------------------------------------------
+
+def _bmul(A, B):
+    '2x2 block product: (2, 2, ...) x (2, 2, ...) pointwise over trailing.'
+
+    rows = []
+    for i in range(2):
+        rows.append(torch.stack([_cmul(A[i, 0], B[0, j])
+                                 + _cmul(A[i, 1], B[1, j])
+                                 for j in range(2)], dim=0))
+    return torch.stack(rows, dim=0)
+
+
+def _bmatvec(A, x):
+    '2x2 block times block vector: (2, 2, ...) x (..., 2, nz, nx).'
+
+    out0 = A[0, 0] * x[..., 0, :, :] + A[0, 1] * x[..., 1, :, :]
+    out1 = A[1, 0] * x[..., 0, :, :] + A[1, 1] * x[..., 1, :, :]
+    return torch.stack([out0, out1], dim=-3)
+
+
+def _binv(D, delta):
+    '''
+    2x2 block inverse with the determinant magnitude-clamped at
+    ``delta * max|det|``, its phase preserved.
+    '''
+
+    a, b = D[0, 0], D[0, 1]
+    c, d = D[1, 0], D[1, 1]
+    det = _cmul(a, d) - _cmul(b, c)
+    mag = torch.abs(det)
+    dmin = delta * torch.max(mag)
+    tiny = torch.finfo(mag.dtype).tiny
+    phase = torch.where(mag > 0,
+                        _cdiv(det, torch.clamp(mag, min=tiny).to(det.dtype)),
+                        torch.ones((), dtype=det.dtype, device=det.device))
+    det_s = torch.where(mag < dmin, _cmul(dmin.to(det.dtype), phase), det)
+    inv = torch.stack([torch.stack([d, _cneg(b)], 0),
+                       torch.stack([_cneg(c), a], 0)], 0)
+    return _cdiv(inv, det_s)
+
+
+def _bshift(A, s):
+    'Shift 2x2 block coefficient arrays (2, 2, nz, nx) along z.'
+    return _shift_z(A, s)
+
+
+def _bcap(A, cap):
+    '''
+    Magnitude cap of a 2x2 block field: rescale any block whose Frobenius
+    norm exceeds ``cap`` down to it (0 or None: no cap, the default).
+    '''
+
+    if not cap:
+        return A
+    nrm = torch.sqrt(sum(torch.abs(A[i, j]) ** 2
+                         for i in range(2) for j in range(2)))
+    scale = torch.clamp(cap / torch.clamp(nrm, min=1e-30), max=1.0)
+    return A * scale.to(A.dtype)[None, None]
+
+
+def _pcr_levels_block(L, D, U, delta, cap=0.0):
+    '''
+    The RHS-independent block cyclic-reduction recurrence. Returns
+    (alphas, gammas) per level and the final reduced block inverse.
+    '''
+
+    alphas, gammas = [], []
+    s = 1
+    for _ in range(_pcr_nsteps(D.shape[-2])):
+        alpha = _bcap(_bmul(_cneg(L), _binv(_bshift(D, -s), delta)), cap)
+        gamma = _bcap(_bmul(_cneg(U), _binv(_bshift(D, +s), delta)), cap)
+        L_new = _bmul(alpha, _bshift(L, -s))
+        U_new = _bmul(gamma, _bshift(U, +s))
+        D_new = (D + _bmul(alpha, _bshift(U, -s))
+                 + _bmul(gamma, _bshift(L, +s)))
+        alphas.append(alpha)
+        gammas.append(gamma)
+        L, D, U = L_new, D_new, U_new
+        s *= 2
+    return alphas, gammas, _binv(D, delta)
+
+
+def _pcr_sweep_rhs_block(alphas, gammas, dinv, b):
+    'RHS-only block reduction sweep with full-precision per-level factors.'
+
+    s = 1
+    for alpha, gamma in zip(alphas, gammas):
+        b = (b + _bmatvec(alpha, _shift_z(b, -s))
+             + _bmatvec(gamma, _shift_z(b, +s)))
+        s *= 2
+    return _bmatvec(dinv, b)
+
+
+def block_tridiag_pcr_solve(L, D, U, b, delta=1e-6):
+    '''
+    Solve block-tridiagonal systems (2x2 blocks) along axis -2 of the
+    block fields: T x[z] = L[z] x[z-1] + D[z] x[z] + U[z] x[z+1], with
+    L, D, U (2, 2, nz, nx) and b (..., 2, nz, nx).
+    '''
+
+    return _pcr_sweep_rhs_block(*_pcr_levels_block(L, D, U, delta), b)
+
+
+class StratPCRBlock(NamedTuple):
+    '''
+    Precomputed block cyclic-reduction state (B = 2). complex64 factors
+    are stored as bfloat16 re/im pairs with the re/im axis second:
+    (nsteps, 2, 2, 2, nz, nx), dinv (2, 2, 2, nz, nx).
+    '''
+
+    alphas: Any   # (nsteps, 2, 2, nz, nx) complex, or bf16 as above
+    gammas: Any
+    dinv: Any     # (2, 2, nz, nx) complex, or (2, 2, 2, nz, nx) bf16
+    ldu: Any      # (3, 2, 2, nz, nx) original coefficients
+
+
+def pcr_precompute_block(L, D, U, delta=1e-6, quantize=None):
+    '''
+    The RHS-independent block reduction, run once at preparation time.
+    ``quantize`` (default: on for complex64) stores the factors as bf16
+    re/im pairs (see StratPCRBlock).
+    '''
+
+    ldu = torch.stack([L, D, U], dim=0)
+    alphas, gammas, dinv = _pcr_levels_block(L, D, U, delta)
+    alphas = torch.stack(alphas, 0)
+    gammas = torch.stack(gammas, 0)
+    if quantize is None:
+        quantize = D.dtype == torch.complex64
+    if quantize:
+        alphas = _pack_bf16(alphas).transpose(0, 1).contiguous()
+        gammas = _pack_bf16(gammas).transpose(0, 1).contiguous()
+        dinv = _pack_bf16(dinv)
+    return StratPCRBlock(alphas, gammas, dinv, ldu)
+
+
+def pcr_apply_block(pcr, b):
+    '''
+    RHS-only block cyclic-reduction sweep with precomputed levels, b
+    (..., 2, nz, nx): plain torch on every device (no kernel, as in the
+    JAX package), unpacking bf16 factors level by level.
+    '''
+
+    if pcr.alphas.dtype == torch.bfloat16:
+        s = 1
+        for i in range(pcr.alphas.shape[0]):
+            a = _unpack_bf16(pcr.alphas[i], b.dtype)
+            g = _unpack_bf16(pcr.gammas[i], b.dtype)
+            b = (b + _bmatvec(a, _shift_z(b, -s))
+                 + _bmatvec(g, _shift_z(b, +s)))
+            s *= 2
+        return _bmatvec(_unpack_bf16(pcr.dinv, b.dtype), b)
+    return _pcr_sweep_rhs_block(pcr.alphas, pcr.gammas, pcr.dinv, b)
+
+
+def stratified_coeffs_block(planes, precond_planes, shift, fft_shift):
+    '''
+    Per-row mean coefficients of a B = 2 block operator at the spectral
+    CSLP shift: (L, D, U), each (2, 2, nz, nx) complex, the
+    block-tridiagonal family over the cross-line wavenumber kx.
+    ``fft_shift='auto'`` is the damped 0.25j for block operators.
+    '''
+
+    if planes.shape[0] != 2:
+        raise ValueError('stratified_coeffs_block: B = 2 only')
+    c0 = _per_row_mean(planes)            # (2, 2, 9, nz)
+    cP = _per_row_mean(precond_planes)
+    cdtype = c0.dtype
+    shift = torch.as_tensor(shift, dtype=cdtype, device=c0.device)
+    cM = (c0 - cP) / shift
+    if isinstance(fft_shift, str):  # 'auto'
+        fft_shift = 0.25j
+    fs = torch.as_tensor(fft_shift, dtype=cdtype, device=c0.device)
+    cF = c0 - fs * cM
+
+    nx = planes.shape[-1]
+    rdtype = c0.real.dtype
+    kx = (2 * np.pi) * torch.fft.fftfreq(nx, dtype=rdtype,
+                                         device=c0.device)
+    bands = []
+    for dz in (-1, 0, 1):
+        acc = None
+        for dx in (-1, 0, 1):
+            k = (dz + 1) * 3 + (dx + 1)
+            phase = torch.exp(1j * kx * dx).to(cdtype)   # (nx,)
+            term = cF[:, :, k, :, None] * phase[None, None, None, :]
+            acc = term if acc is None else acc + term
+        bands.append(acc)                                 # (2, 2, nz, nx)
+    return tuple(bands)
+
+
+def stratified_apply_block(strat, r, transpose=False):
+    '''
+    Apply the block stratified interior inverse to r (R, 2, nz, nx):
+    x-FFT, the precomputed block PCR sweep in z, inverse x-FFT. The
+    transposed family (the TTI backward) is not ported yet.
+    '''
+
+    if transpose:
+        raise NotImplementedError(
+            'stratified_apply_block(transpose=True): the transposed block '
+            'family belongs to TTI gradients, not ported yet (ROADMAP '
+            'Queue 1, item 8b)')
+    rhat = torch.fft.fft(r, dim=-1)
+    return torch.fft.ifft(pcr_apply_block(strat, rhat), dim=-1)
