@@ -8,8 +8,9 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
 
 1. versions, the card's name and power limit, the TF32 switches (both
    set off and printed);
-2. build the CUDA kernels K1-K5, K7 and K8 from zephyr_tpu_torch/csrc
-   with nvcc (one nvcc per source, all started together);
+2. build the CUDA kernels K1-K9 from zephyr_tpu_torch/csrc with nvcc
+   (one nvcc per source, all started together), printing ptxas's
+   register and spill counts;
 3. hold each kernel against its plain torch twin on the card, complex64,
    at the main path's shapes and at odd ones (fail above 1e-5 relative to
    the twin's largest magnitude), and time both, beside the least time
@@ -18,6 +19,7 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    that call's time; K3 also at nz=2048 (the default config's
    full-resolution family, 11 levels); K1 also at R=1 and odd shapes
    (the unbatched apply K10); K8 at 2048^2 and 512^2 x 16 and 37x53 x 3;
+   K6 (from u and from zero) and K9 beside K1/K2/K4;
 4. the forward-modelling oracle: ``MiniZephyr(config) * q`` on the card
    with the production solver options (4) and with no solverOpts, the
    default SolverConfig (4b), against AnalyticalHelmholtz
@@ -27,9 +29,10 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    homogeneous and the 4-layer model with the production config, and on
    the homogeneous model with the default config (5b) (relres <= 1e-5),
    plus the homogeneous oracle errors;
-6. (after 7 and 8) the launch counts of every kernel: over phases 4-7
-   (K1-K5, K7 must be > 0) and over phase 8 (K7, K8 must be > 0), each
-   path driven with the counts set to 0 just before it;
+6. (after 7-9) the launch counts of every kernel: over phases 4-7
+   (K1-K5, K7 must be > 0), over phase 8 (K7, K8) and over phase 9 (K1-K4,
+   K6 both variants, K7, K9), each path driven with the counts set to 0
+   just before it;
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
@@ -48,7 +51,19 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    line-smoother pin of tests/test_eurus.py:86-123 (128^2 layered,
    solve_info). (b)-(d) must end finite and below their
    starting residual; whether they reach 1e-5 is printed, with the chunk
-   residual trace.
+   residual trace;
+9. Marmousi-class media (the bench's rough model, bench.py:107-157, 16
+   sources as phase 5 draws them): (a) the bench's ``marmousi`` row,
+   2048^2 with the production config, whose auto rule must give 8
+   x-panels (relres <= 1e-5), warm-up then timed; (b) the same row with
+   mg_nu1=mg_nu2=3 (K6 both variants, no K2), run once, stopped at (a)'s
+   iteration count (it stalls, in the JAX package too: finite and below
+   its start is checked); (c) the public ``multigrid.presmooth_residual``
+   on level 0 of (a)'s hierarchy at R=16 (K9), held against K2's
+   restriction of the same downstroke; (d) the bench's
+   ``gradient_marmousi`` row at 512^2 (finite, non-zero); (e) phase 7c's
+   autograd-vs-chunked agreement on the 512^2 Marmousi model (2 panels,
+   the transposed panel family in the backward).
 
 It prints one JSON line of per-kernel results, the nvidia-smi line, and
 as its last line {"ok": true, "device": {...}}. It needs one CUDA device
@@ -83,6 +98,11 @@ KERNELS = {
                            'zephyr_tpu/ops/pallas_stencil.py:1321'),
     'jacobi_sweep': ('K5', 'zephyr_tpu_torch/csrc/k5_jacobi_sweep.cu',
                      'zephyr_tpu/ops/pallas_stencil.py:450'),
+    'jacobi_sweep2': ('K6', 'zephyr_tpu_torch/csrc/k6_jacobi_sweep2.cu',
+                      'zephyr_tpu/ops/pallas_stencil.py:534'),
+    'jacobi_sweep2_zero': ('K6',
+                           'zephyr_tpu_torch/csrc/k6_jacobi_sweep2.cu',
+                           'zephyr_tpu/ops/pallas_stencil.py:534'),
     'restrict': ('K7', 'zephyr_tpu_torch/csrc/k7_transfer.cu',
                  'zephyr_tpu/ops/pallas_transfer.py:77'),
     'prolong': ('K7', 'zephyr_tpu_torch/csrc/k7_transfer.cu',
@@ -90,6 +110,9 @@ KERNELS = {
     'apply_block_stencil': ('K8',
                             'zephyr_tpu_torch/csrc/k8_apply_block_stencil.cu',
                             'zephyr_tpu/ops/pallas_stencil.py:1013'),
+    'presmooth_residual': ('K9',
+                           'zephyr_tpu_torch/csrc/k9_presmooth_residual.cu',
+                           'zephyr_tpu/ops/pallas_stencil.py:748'),
 }
 KERNEL_TOL = 1e-5
 #: the card's peaks for the bounds (H100 SXM data sheet, at 700 W): device
@@ -140,6 +163,12 @@ def work(name, nz, nx, R, nsteps=None):
         return 8 * (10 * N + 3 * R * N + R * Nc) + 4 * N, 102 * R * N
     if name == 'jacobi_sweep':
         return 8 * (10 * N + 3 * R * N), 82 * R * N
+    if name == 'jacobi_sweep2':          # two sweeps from u
+        return 8 * (10 * N + 3 * R * N), 164 * R * N
+    if name == 'jacobi_sweep2_zero':     # D b, then one sweep
+        return 8 * (10 * N + 2 * R * N), 88 * R * N
+    if name == 'presmooth_residual':     # two sweeps + masked residual
+        return 8 * (10 * N + 3 * R * N) + 4 * N, 164 * R * N
     if name == 'restrict':
         return 8 * R * (N + Nc), 36 * R * Nc
     if name == 'prolong':
@@ -181,6 +210,21 @@ def library_prolong(vc):
         torch.view_as_real(vc).unsqueeze(1), W, stride=(2, 2, 1),
         padding=(1, 1, 0), output_padding=(1, 1, 0))
     return torch.view_as_complex(out.squeeze(1))
+
+
+def compact_trace(trace):
+    '''
+    A chunk trace [(iterations, worst relres), ...] with runs of equal
+    entries (relres to 4 digits) merged: [[iterations, relres, count]].
+    '''
+    out = []
+    for it, rr in trace:
+        rr = float('%.4g' % rr)
+        if out and out[-1][:2] == [it, rr]:
+            out[-1][2] += 1
+        else:
+            out.append([it, rr, 1])
+    return out
 
 
 def cuda_ms(fn, reps=10, warm=2):
@@ -382,6 +426,19 @@ def check_kernels():
                stencil._jacobi_ref(planes, D, b, u), main,
                (lambda: ck.jacobi_sweep(planes, D, b, u),
                 lambda: stencil._jacobi_ref(planes, D, b, u)), shape=shape)
+        record('jacobi_sweep2', desc, ck.jacobi_sweep2(planes, D, b, u),
+               stencil._jacobi2_ref(planes, D, b, u), main,
+               (lambda: ck.jacobi_sweep2(planes, D, b, u),
+                lambda: stencil._jacobi2_ref(planes, D, b, u)), shape=shape)
+        record('jacobi_sweep2_zero', desc, ck.jacobi_sweep2(planes, D, b),
+               stencil._jacobi2z_ref(planes, D, b), main,
+               (lambda: ck.jacobi_sweep2(planes, D, b),
+                lambda: stencil._jacobi2z_ref(planes, D, b)), shape=shape)
+        record('presmooth_residual', desc,
+               ck.presmooth_residual(planes, D, mask, b),
+               stencil._ps2r_ref(planes, D, mask, b), main,
+               (lambda: ck.presmooth_residual(planes, D, mask, b),
+                lambda: stencil._ps2r_ref(planes, D, mask, b)), shape=shape)
         cdesc = '%s -> %dx%d' % (desc, (nz + 1) // 2, (nx + 1) // 2)
         record('restrict', cdesc, ck.restrict(b),
                multigrid._restrict_ref(b), main,
@@ -485,61 +542,126 @@ def layered_c(n):
     return c
 
 
-def headline(n, nsrc, medium, card, opts=PRODUCTION):
+def marmousi_c(n, dtype=np.float32):
     '''
-    Phase 5: prepare_operator + make_chunked_solver on the card at n^2
-    with nsrc point sources and the given solver options (None: the
-    default SolverConfig); returns a dict of the run's numbers.
+    The bench's rough Marmousi-style model (bench.py:107-157, a copy):
+    dipping folded thin beds with a lateral trend, fault offsets, a
+    low-velocity lens and band-limited 1/k roughness of 120 m/s rms.
+    '''
+    z = np.linspace(0., 1., n)[:, None]
+    x = np.linspace(0., 1., n)[None, :]
+    horizon = z + 0.15 * x + 0.05 * np.sin(6.0 * np.pi * x) * (0.3 + z)
+    for fx, dzo in ((0.3, 0.06), (0.55, -0.08), (0.8, 0.05)):
+        horizon = horizon + dzo * (x > fx)
+    nlayer = 24
+    idx = np.clip(np.floor(horizon * nlayer).astype(int), 0, nlayer + 4)
+    rng = np.random.default_rng(42)
+    vels = (1500. + 2200. * np.arange(nlayer + 5) / (nlayer + 4)
+            + rng.uniform(-220., 220., nlayer + 5))
+    vels = np.maximum.accumulate(vels)
+    c = vels[idx]
+    r2 = (z - 0.45) ** 2 + (x - 0.5) ** 2
+    c = c - 300. * np.exp(-r2 / 0.01)
+    w = rng.standard_normal((n, n))
+    kz = np.fft.fftfreq(n)[:, None]
+    kx = np.fft.fftfreq(n)[None, :]
+    k = np.sqrt(kz ** 2 + kx ** 2)
+    lo, hi = 2.0 / n, 1.0 / 16.0
+    filt = np.where((k >= lo) & (k <= hi), 1.0 / np.maximum(k, lo), 0.0)
+    rough = np.real(np.fft.ifft2(np.fft.fft2(w) * filt))
+    rough = rough / max(rough.std(), 1e-30)
+    c = c + 120.0 * rough
+    return np.asarray(np.maximum(c, 1400.), dtype)
+
+
+def scalar_operator(c_np, cfg, freq=1500.0 / 16):
+    '''
+    The prepared scalar operator (MiniZephyr true and CSLP-shifted planes,
+    complex64, on the card) of a host velocity model; (op, prep seconds).
     '''
     import torch
     from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
-    from zephyr_tpu_torch.ops.special import hankel1_0
-    from zephyr_tpu_torch.solver.helmholtz import (
-        prepare_operator, make_chunked_solver, resolve_solver_config,
-        shifted_velocity, resolve_panels)
-    cval = 1500.0
-    freq = cval / 16.0
-    c_np = (np.full((n, n), cval, np.float32) if medium == 'hom'
-            else layered_c(n))
-    cname = 'default' if opts is None else 'production'
-    cfg = resolve_panels(resolve_solver_config(opts, torch.complex64), c_np)
+    from zephyr_tpu_torch.solver.helmholtz import (prepare_operator,
+                                                   shifted_velocity)
+    n_z, n_x = c_np.shape
     c = torch.as_tensor(c_np, device=DEV).to(torch.complex64)
-    rho = torch.ones((n, n), dtype=torch.float32, device=DEV)
-    reset_peak()
+    rho = torch.ones((n_z, n_x), dtype=torch.float32, device=DEV)
     t0 = time.perf_counter()
     planes = minizephyr_planes(c, rho, freq)[None, None]
     pplanes = minizephyr_planes(shifted_velocity(c, cfg.shift), rho, freq,
                                 pml_cap=cfg.pml_cap)[None, None]
     op = prepare_operator(planes, pplanes, cfg, with_transpose=False)
     torch.cuda.synchronize()
-    t_prep = time.perf_counter() - t0
+    return op, time.perf_counter() - t0
 
-    rng = np.random.default_rng(0)
-    pos = rng.integers(n // 8, 7 * n // 8, size=(nsrc, 2))
+
+def point_sources(n, nsrc):
+    '''
+    (nsrc, 1, n, n) unit point sources, complex64 on the card, at the
+    positions bench.py draws (seed 0).
+    '''
+    import torch
+    pos = np.random.default_rng(0).integers(n // 8, 7 * n // 8,
+                                            size=(nsrc, 2))
     b = torch.zeros((nsrc, 1, n, n), dtype=torch.complex64, device=DEV)
     b[torch.arange(nsrc), 0, torch.as_tensor(pos[:, 0]),
       torch.as_tensor(pos[:, 1])] = 1.0
+    return b
+
+
+MEDIA = {'hom': lambda n: np.full((n, n), 1500.0, np.float32),
+         'layered': lambda n: layered_c(n),
+         'marmousi': lambda n: marmousi_c(n)}
+
+
+def headline(n, nsrc, medium, card, opts=PRODUCTION):
+    '''
+    Phase 5 (and 9a): prepare_operator + make_chunked_solver on the card
+    at n^2 with nsrc point sources and the given solver options (None: the
+    default SolverConfig), the auto x-panel rule applied; a warm-up solve,
+    then a timed one, which must reach tol. Returns a dict of the run's
+    numbers (with the chunk trace and the launches per iteration) and the
+    prepared operator.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    from zephyr_tpu_torch.ops.special import hankel1_0
+    from zephyr_tpu_torch.solver.helmholtz import (
+        make_chunked_solver, resolve_solver_config, resolve_panels)
+    cval = 1500.0
+    freq = cval / 16.0
+    c_np = MEDIA[medium](n)
+    cname = 'default' if opts is None else 'production'
+    cfg = resolve_panels(resolve_solver_config(opts, torch.complex64), c_np)
+    reset_peak()
+    op, t_prep = scalar_operator(c_np, cfg, freq)
+    b = point_sources(n, nsrc)
     solver = make_chunked_solver(cfg, chunk=32)
 
     _, iters0, relres0 = solver(op, b)      # warm-up
     torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)
+    trace = []
     t0 = time.perf_counter()
-    x, iters, relres = solver(op, b)
+    x, iters, relres = solver(op, b, trace=trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    per_iter = {k: (ck.LAUNCHES[k] - before[k]) / max(iters, 1)
+                for k in ck.LAUNCHES if ck.LAUNCHES[k] > before[k]}
     if not (np.isfinite(relres) and relres <= cfg.tol):
-        fail('%s %d^2: relres %.3e > tol %.0e' % (medium, n, relres,
-                                                  cfg.tol))
+        fail('%s %d^2: relres %.3e > tol %.0e; chunk trace %s'
+             % (medium, n, relres, cfg.tol, trace))
     if not bool(torch.isfinite(x).all()):
         fail('%s %d^2: non-finite wavefield' % (medium, n))
     out = {'medium': medium, 'config': cname, 'n': n, 'nsrc': nsrc,
-           'iters': iters, 'relres': relres, 'wall_s': wall,
-           'solves_per_s': nsrc / wall, 'prep_s': t_prep,
-           'warmup_iters': iters0, 'peak_gb': peak_gb()}
-    say('headline %s %s %d^2 x %d src: iters %d  relres %.3e  wall %.3f s'
-        '  %.3f solves/s  (prep %.2f s; peak %.2f GB; card %s)'
-        % (medium, cname, n, nsrc, iters, relres, wall, nsrc / wall,
-           t_prep, out['peak_gb'], card))
+           'panels': cfg.strat_panels, 'iters': iters, 'relres': relres,
+           'wall_s': wall, 'solves_per_s': nsrc / wall, 'prep_s': t_prep,
+           'warmup_iters': iters0, 'peak_gb': peak_gb(),
+           'trace': compact_trace(trace), 'launches_per_iter': per_iter}
+    say('headline %s %s %d^2 x %d src (%d panels): iters %d  relres %.3e  '
+        'wall %.3f s  %.3f solves/s  (prep %.2f s; peak %.2f GB; card %s)'
+        % (medium, cname, n, nsrc, cfg.strat_panels, iters, relres, wall,
+           nsrc / wall, t_prep, out['peak_gb'], card))
 
     if medium == 'hom':
         # interior-window oracle of one source outside the window
@@ -567,7 +689,7 @@ def headline(n, nsrc, medium, card, opts=PRODUCTION):
             'source, %d iters, relres %.3e)' % (cname, n, err, it0, rr0))
         if not err < 1e-2:
             fail('headline oracle error %.3e >= 1e-2' % err)
-    return out
+    return out, op
 
 
 # --- phase 7 -------------------------------------------------------------
@@ -584,15 +706,16 @@ def reset_peak():
     torch.cuda.reset_peak_memory_stats()
 
 
-def fwi_gradient(n, nsrc, nfreq, card):
+def fwi_gradient(n, nsrc, nfreq, card, medium='layered'):
     '''
-    Phase 7a: the bench's gradient row (bench.py:590-629) through the
-    port: fwi_misfit_grad_chunked on the layered model, zero observed
-    data, grids by targetGPW 16, the production config, chunk 16.
+    Phase 7a (and 9d on the Marmousi model): the bench's gradient row
+    (bench.py:590-629) through the port: fwi_misfit_grad_chunked, zero
+    observed data, grids by targetGPW 16, the production config with the
+    auto x-panel rule (resolved per grid inside), chunk 16.
     '''
     from zephyr_tpu_torch.parallel import fwi_misfit_grad_chunked
     from zephyr_tpu_torch.solver.helmholtz import SolverConfig
-    c = layered_c(n).astype(np.float64)
+    c = MEDIA[medium](n).astype(np.float64)
     rho = np.ones((n, n))
     freqs = np.linspace(0.6, 1.0, nfreq) * (1500.0 / 16)
     rng = np.random.default_rng(2)
@@ -611,15 +734,16 @@ def fwi_gradient(n, nsrc, nfreq, card):
         cmin=1500.0, device=DEV, stats=stats)
     wall = time.perf_counter() - t0
     gnorm = float(np.linalg.norm(grad))
-    out = {'n': n, 'nsrc': nsrc, 'nfreq': nfreq, 'wall_s': wall,
-           'misfit': float(misfit), 'grad_norm': gnorm,
+    out = {'medium': medium, 'n': n, 'nsrc': nsrc, 'nfreq': nfreq,
+           'wall_s': wall, 'misfit': float(misfit), 'grad_norm': gnorm,
            'grids': sorted(set(stats['shapes'])),
            'iters_fwd_adj': [(it_f, it_a) for _, _, it_f, it_a
                              in stats['iters']],
            'phase_s': stats['seconds'], 'peak_gb': peak_gb()}
-    say('gradient %d^2 layered x %d src x %d freq: wall %.3f s  misfit '
+    say('gradient %d^2 %s x %d src x %d freq: wall %.3f s  misfit '
         '%.6e  |grad| %.6e  peak %.2f GB  (card %s)'
-        % (n, nsrc, nfreq, wall, misfit, gnorm, out['peak_gb'], card))
+        % (n, medium, nsrc, nfreq, wall, misfit, gnorm, out['peak_gb'],
+           card))
     say('  grids %s; (forward, adjoint) iterations per frequency %s'
         % (out['grids'], out['iters_fwd_adj']))
     say('  host seconds by phase %s' % json.dumps(out['phase_s']))
@@ -676,21 +800,24 @@ def solve_backward(n, nsrc, card):
     return out
 
 
-def gradient_agreement(n, nsrc, nrec, card, limit=1e-3):
+def gradient_agreement(n, nsrc, nrec, card, limit=1e-3, medium='layered'):
     '''
-    Phase 7c: at n^2 layered, one frequency, the production config, the
-    misfit gradient w.r.t. c by autograd through solve against
-    fwi_misfit_grad_chunked on the same sources, receivers and data.
+    Phase 7c (and 9e on the Marmousi model): at n^2, one frequency, the
+    production config with the auto x-panel rule, the misfit gradient
+    w.r.t. c by autograd through solve (its backward a transpose solve)
+    against fwi_misfit_grad_chunked on the same sources, receivers and
+    data.
     '''
     import torch
     from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
     from zephyr_tpu_torch.parallel import fwi_misfit_grad_chunked
     from zephyr_tpu_torch.parallel.multifreq import _kaiser_stamps
     from zephyr_tpu_torch.solver.helmholtz import (
-        SolverConfig, prepare_operator, shifted_velocity, solve_batched)
-    cfg = SolverConfig(**PRODUCTION)
+        SolverConfig, prepare_operator, shifted_velocity, solve_batched,
+        resolve_panels)
     freq = 1500.0 / 16
-    c = layered_c(n).astype(np.float64)
+    c = MEDIA[medium](n).astype(np.float64)
+    cfg = resolve_panels(SolverConfig(**PRODUCTION), c)
     rng = np.random.default_rng(4)
     src_pos = rng.uniform(n // 8, 7 * n // 8, size=(nsrc, 2))
     rec_pos = np.stack([np.linspace(n // 8, 7 * n // 8, nrec),
@@ -734,14 +861,16 @@ def gradient_agreement(n, nsrc, nrec, card, limit=1e-3):
     t_ad = time.perf_counter() - t0
     diff = float(np.max(np.abs(g_ad - g_ch)) / np.max(np.abs(g_ch)))
     mis_diff = abs(float(loss.detach()) - m_ch) / m_ch
-    out = {'n': n, 'nsrc': nsrc, 'nrec': nrec, 'max_rel_diff': diff,
+    out = {'medium': medium, 'panels': cfg.strat_panels, 'n': n,
+           'nsrc': nsrc, 'nrec': nrec, 'max_rel_diff': diff,
            'misfit_rel_diff': mis_diff, 'chunked_s': t_ch,
            'autograd_s': t_ad, 'peak_gb': peak_gb()}
-    say('gradient agreement %d^2 layered, 1 freq, %d src, %d rec: '
+    say('gradient agreement %d^2 %s (%d panels), 1 freq, %d src, %d rec: '
         'max|g_solve - g_chunked| / max|g_chunked| %.3e (limit %.0e), '
         'misfit rel diff %.3e; chunked %.2f s, autograd %.2f s; peak %.2f '
-        'GB (card %s)' % (n, nsrc, nrec, diff, limit, mis_diff, t_ch, t_ad,
-                          out['peak_gb'], card))
+        'GB (card %s)' % (n, medium, cfg.strat_panels, nsrc, nrec, diff,
+                          limit, mis_diff, t_ch, t_ad, out['peak_gb'],
+                          card))
     if not diff <= limit:
         fail('autograd and chunked gradients differ by %.3e > %.0e'
              % (diff, limit))
@@ -841,15 +970,15 @@ def tti_bench(n, nsrc, medium, card, warm=True):
            'reached_1e-5': bool(relres <= 1e-5), 'wall_s': wall,
            'solves_per_s': nsrc / wall, 'prep_s': t_prep,
            'warmup_iters': iters0, 'warmup_relres': relres0,
-           'launches_per_iter': per_iter, 'trace': trace,
+           'launches_per_iter': per_iter, 'trace': compact_trace(trace),
            'peak_gb': peak_gb()}
     say('TTI %s %d^2 x %d src: iters %d  relres %.3e (1e-5 %s)  wall %.3f s'
         '  %.3f solves/s  (prep %.2f s; peak %.2f GB; card %s)'
         % (out['row'], n, nsrc, iters, relres,
            'reached' if out['reached_1e-5'] else 'NOT reached', wall,
            nsrc / wall, t_prep, out['peak_gb'], card))
-    say('  chunk (iterations, worst relres) trace: %s'
-        % json.dumps([(i, float('%.3e' % r)) for i, r in trace]))
+    say('  chunk trace [iterations, worst relres, repeats]: %s'
+        % json.dumps(out['trace']))
     say('  launches per GMRES iteration: %s' % json.dumps(per_iter))
     if not (np.isfinite(relres) and relres < 1.0):
         fail('TTI %s: relres %r is not finite and below the starting 1.0'
@@ -886,10 +1015,118 @@ def tti_pin(card, n=128):
             'seconds': secs}
 
 
+# --- phase 9 -------------------------------------------------------------
+
+class uncounted:
+    '''
+    A block whose kernel launches are not counted: the launch counts are
+    restored on exit (for the comparisons that hold a path's kernel
+    against another computation of the same function).
+    '''
+
+    def __enter__(self):
+        from zephyr_tpu_torch.ops import cuda_kernels as ck
+        self.saved = dict(ck.LAUNCHES)
+
+    def __exit__(self, *exc):
+        from zephyr_tpu_torch.ops import cuda_kernels as ck
+        ck.LAUNCHES.update(self.saved)
+
+
+def presmooth_residual_check(op, nsrc, card):
+    '''
+    Phase 9c: the public multigrid.presmooth_residual on level 0 of a
+    prepared operator's hierarchy at nu1 = 2 (K9) for an (nsrc, 1, nz, nx)
+    random batch, held against K2's fused downstroke of the same batch:
+    the same iterate, and K2's restriction of the K9 residual.
+    '''
+    import torch
+    from zephyr_tpu_torch.solver import multigrid
+    from zephyr_tpu_torch.solver.helmholtz import SolverConfig
+    omega = SolverConfig(**PRODUCTION).mg_omega
+    lvl = op.hier.levels[0]
+    n_z, n_x = lvl.planes.shape[-2:]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(9)
+    b = torch.complex(torch.randn((nsrc, 1, n_z, n_x), generator=gen,
+                                  device=DEV),
+                      torch.randn((nsrc, 1, n_z, n_x), generator=gen,
+                                  device=DEV))
+    u, resm = multigrid.presmooth_residual(lvl, b, omega, 2)
+    torch.cuda.synchronize()
+    with uncounted():
+        u_k2, rc_k2 = multigrid.presmooth_restrict(lvl, b, omega, 2)
+        rel, abs_err = rel_err((u, multigrid.restrict(resm)), (u_k2, rc_k2))
+    out = {'n': n_z, 'nsrc': nsrc, 'rel_err_vs_k2': rel,
+           'abs_err_vs_k2': abs_err}
+    say('presmooth_residual (K9) on level 0, %dx%d x %d: against K2 rel '
+        'err %.3e (limit %.0e) (card %s)' % (n_z, n_x, nsrc, rel,
+                                             KERNEL_TOL, card))
+    if not rel <= KERNEL_TOL:
+        fail('presmooth_residual disagrees with K2: %.3e' % rel)
+    return out
+
+
+def marmousi_nu33(n, nsrc, card, max_iters):
+    '''
+    Phase 9b: the bench's marmousi row with mg_nu1 = mg_nu2 = 3 (K6 from
+    zero and from u, K5 for the odd sweep, the downstroke through K1 and
+    K7 instead of K2), one solve stopped at ``max_iters`` (chunks of 32).
+    It stalls in the JAX package too, so it must only end finite and
+    below its starting residual; the chunk trace and the launches per
+    iteration are printed.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    from zephyr_tpu_torch.solver.helmholtz import (
+        make_chunked_solver, resolve_solver_config, resolve_panels)
+    c_np = marmousi_c(n)
+    cfg = resolve_panels(resolve_solver_config(
+        dict(PRODUCTION, mg_nu1=3, mg_nu2=3), torch.complex64), c_np)
+    reset_peak()
+    op, t_prep = scalar_operator(c_np, cfg)
+    b = point_sources(n, nsrc)
+    before = dict(ck.LAUNCHES)
+    trace = []
+    t0 = time.perf_counter()
+    x, iters, relres = make_chunked_solver(cfg, chunk=32)(
+        op, b, max_chunks=max(1, -(-max_iters // 32)), trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_iter = {k: (ck.LAUNCHES[k] - before[k]) / max(iters, 1)
+                for k in ck.LAUNCHES if ck.LAUNCHES[k] > before[k]}
+    out = {'medium': 'marmousi', 'config': 'production nu 3/3', 'n': n,
+           'nsrc': nsrc, 'panels': cfg.strat_panels, 'iters': iters,
+           'relres': relres, 'reached_1e-5': bool(relres <= 1e-5),
+           'wall_s': wall, 'ms_per_iter': 1e3 * wall / max(iters, 1),
+           'prep_s': t_prep, 'peak_gb': peak_gb(),
+           'trace': compact_trace(trace), 'launches_per_iter': per_iter}
+    say('marmousi nu 3/3 %d^2 x %d src (%d panels): iters %d  relres %.3e '
+        '(1e-5 %s)  wall %.3f s, %.2f ms per iteration  (prep %.2f s; peak '
+        '%.2f GB; card %s)' % (n, nsrc, cfg.strat_panels, iters, relres,
+                               'reached' if out['reached_1e-5']
+                               else 'NOT reached', wall, out['ms_per_iter'],
+                               t_prep, out['peak_gb'], card))
+    say('  chunk trace [iterations, worst relres, repeats]: %s'
+        % json.dumps(out['trace']))
+    say('  launches per BiCGStab iteration: %s' % json.dumps(per_iter))
+    if not (np.isfinite(relres) and relres < 1.0
+            and bool(torch.isfinite(x).all())):
+        fail('marmousi nu 3/3: relres %r is not finite and below the '
+             'starting 1.0' % relres)
+    if 'presmooth_restrict' in per_iter or not per_iter.get('jacobi_sweep2'):
+        fail('marmousi nu 3/3 ran K2 or no K6: %s' % per_iter)
+    return out
+
+
 #: the kernels each main path must launch (phase 6)
 SCALAR_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                'prolong_add_smooth', 'jacobi_sweep', 'restrict', 'prolong')
 TTI_PATH = ('apply_block_stencil', 'restrict', 'prolong')
+MARMOUSI_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
+                 'prolong_add_smooth', 'jacobi_sweep', 'jacobi_sweep2',
+                 'jacobi_sweep2_zero', 'restrict', 'prolong',
+                 'presmooth_residual')
 
 
 def main():
@@ -934,9 +1171,9 @@ def main():
     ck.reset_launches()
     oracle_flow()
     oracle_flow(None)
-    runs = [headline(2048, 16, 'hom', card),
-            headline(2048, 16, 'layered', card),
-            headline(2048, 16, 'hom', card, opts=None)]
+    runs = [headline(2048, 16, 'hom', card)[0],
+            headline(2048, 16, 'layered', card)[0],
+            headline(2048, 16, 'hom', card, opts=None)[0]]
     grads = {'fwi': fwi_gradient(2048, 16, 8, card),
              'solve_backward': solve_backward(2048, 16, card),
              'agreement': gradient_agreement(512, 8, 32, card)}
@@ -952,9 +1189,25 @@ def main():
            'pin': tti_pin(card)}
     torch.cuda.synchronize()
     launches['tti'] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    row_a, op_a = headline(2048, 16, 'marmousi', card)
+    if row_a['panels'] != 8:
+        fail('marmousi 2048^2: the auto rule gave %d panels, not 8'
+             % row_a['panels'])
+    marm = {'marmousi': row_a,
+            'presmooth_residual': presmooth_residual_check(op_a, 16, card)}
+    del op_a
+    marm['marmousi_nu33'] = marmousi_nu33(2048, 16, card, row_a['iters'])
+    marm['gradient_marmousi'] = fwi_gradient(512, 16, 8, card,
+                                             medium='marmousi')
+    marm['agreement'] = gradient_agreement(512, 8, 32, card,
+                                           medium='marmousi')
+    torch.cuda.synchronize()
+    launches['marmousi'] = dict(ck.LAUNCHES)
 
     # phase 6
-    for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH)):
+    for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH),
+                        ('marmousi', MARMOUSI_PATH)):
         say('launches over the %s path: %s'
             % (path, json.dumps(launches[path])))
         for name in names:
@@ -966,6 +1219,7 @@ def main():
     say(json.dumps({'runs': runs, 'card': card}))
     say(json.dumps({'gradients': grads, 'card': card}))
     say(json.dumps({'tti': tti, 'card': card}))
+    say(json.dumps({'marmousi': marm, 'card': card}))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():

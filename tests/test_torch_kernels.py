@@ -1,5 +1,5 @@
 '''
-The CUDA kernels K1-K5, K7 and K8 against their torch twins, on the card,
+The CUDA kernels K1-K9 against their torch twins, on the card,
 complex64, at small and odd shapes (chip_smoke.py runs the same checks
 at the main path's shapes). Marked ``cuda``: without an NVIDIA GPU and
 nvcc they skip. On a machine with one (where jax is not installed, add
@@ -71,6 +71,25 @@ def test_k5_matches_twin(dev, nz, nx, R):
     planes, D, _, b, u, _ = _operands(dev, nz, nx, R)
     assert _close(ck.jacobi_sweep(planes, D, b, u),
                   stencil._jacobi_ref(planes, D, b, u))
+
+
+@pytest.mark.parametrize('nz,nx,R', SHAPES + [(1, 1, 1)])
+def test_k6_k9_match_twins(dev, nz, nx, R):
+    'K6 from u and from zero, and K9, with their launch counts.'
+    planes, D, mask, b, u, _ = _operands(dev, nz, nx, R)
+    n = dict(ck.LAUNCHES)
+    assert _close(stencil.jacobi_sweep2_batched(planes, D, b, u),
+                  stencil._jacobi2_ref(planes, D, b, u))
+    assert _close(stencil.jacobi_sweep2_batched(planes, D, b),
+                  stencil._jacobi2z_ref(planes, D, b))
+    u_k, r_k = stencil.presmooth_residual_batched(planes, D, mask, b)
+    u_r, r_r = stencil._ps2r_ref(planes, D, mask, b)
+    assert _close(u_k, u_r) and _close(r_k, r_r)
+    for name in ('jacobi_sweep2', 'jacobi_sweep2_zero',
+                 'presmooth_residual'):
+        assert ck.LAUNCHES[name] == n[name] + 1
+    with pytest.raises(TypeError):
+        ck.jacobi_sweep2(planes, D, b, u.to(torch.complex128))
 
 
 @pytest.mark.parametrize('nz,nx,R', SHAPES + [(2, 7, 2), (1, 1, 1)])

@@ -4,8 +4,9 @@ Port parity of the FWI gradient routine and what it stands on:
 (``jax.vjp``), the grid plan, the Kaiser stamps and the viscous velocity
 against the JAX package, and ``fwi_misfit_grad_chunked`` against the JAX
 package's on its dense-R path and on its stamp path with per-frequency
-grids (targetGPW), plus a central-difference check of the port's
-gradient; and the port's nearest-gridpoint search (which never builds
+grids (targetGPW) and on a Marmousi model with the production config
+and x-panels (the transposed-planes operator runs the panel family),
+plus a central-difference check of the port's gradient; and the port's nearest-gridpoint search (which never builds
 the grid-sized distance array) against the JAX package's. CPU,
 complex128 / float64.
 
@@ -113,6 +114,34 @@ def test_fwi_gradient_dense_matches_jax():
                                            config=SolverConfig(**OPTS),
                                            device='cpu', **kw)
     assert g_t.shape == (nz, nx) and g_t.dtype == np.float64
+    assert abs(m_t - m_j) / m_j < 1e-8
+    assert _rel(g_t, g_j) < 1e-6
+
+
+def test_fwi_gradient_panelled_marmousi_matches_jax():
+    '''
+    The production config (fused cycle, fft_scale=2) with 2 x-panels and
+    the nu 3/3 smoother on the bench's Marmousi model cut to 40x36, two
+    point sources, three receivers, two frequencies.
+    '''
+    from bench import _marmousi_c
+    nz, nx = 40, 36
+    c = _marmousi_c(nz, np.float64)[:, :nx]
+    opts = dict(OPTS, mg_coarse='inv', fft_scale=2, hybrid_comp='fused',
+                mg_nu1=3, mg_nu2=3, strat_panels=2, strat_overlap=2)
+    q = np.zeros((2, 2, nz, nx), np.complex128)
+    q[:, 0, 12, 10] = q[:, 1, 26, 24] = 1.0
+    R = np.zeros((3, nz * nx), np.complex128)
+    for i, (z, x) in enumerate(((30, 8), (10, 30), (20, 18))):
+        R[i, z * nx + x] = 1.0
+    kw = dict(chunk=2, nPML=8)
+    args = (c, np.ones((nz, nx)), np.array([120., 180.]), q, R,
+            np.full((2, 2, 3), 0.01 - 0.02j))
+    m_j, g_j = jmf.fwi_misfit_grad_chunked(*args, config=JConfig(**opts),
+                                           **kw)
+    m_t, g_t = tmf.fwi_misfit_grad_chunked(*args,
+                                           config=SolverConfig(**opts),
+                                           device='cpu', **kw)
     assert abs(m_t - m_j) / m_j < 1e-8
     assert _rel(g_t, g_j) < 1e-6
 

@@ -2,18 +2,21 @@
 Port parity: zephyr_tpu_torch's stencil algebra, grid transfers and
 fused-operator twins against zephyr_tpu on the same inputs (made with
 numpy from a seed), both in complex128. The twins are what the CUDA
-kernels K1, K2 and K4 are held against on the card; here they are held
-against the JAX package's own reference bodies (the functions its CPU
-path runs in place of the Pallas kernels).
+kernels K1, K2, K4, K6 and K9 are held against on the card; here they are
+held against the JAX package's own reference bodies (the functions its
+CPU path runs in place of the Pallas kernels), and the K6 and K9 twins
+also against the Pallas kernels themselves in interpret mode (complex64).
 
 Tolerance: rel 1e-12 (complex128 rounding; the two frameworks may sum
-the same terms in a different order).
+the same terms in a different order); rel 1e-5 against the Pallas
+kernels (float32).
 '''
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from zephyr_tpu.ops import stencil as jst
@@ -114,6 +117,48 @@ def test_prolong_add_smooth_twin_parity(nz, nx):
     out_t = tst.prolong_add_smooth_batched(*_t(planes, d, mask, b, u, ec))
     out_j = jst._pas_ref(*_j(planes, d, mask, b, u, ec))
     assert _rel(out_t, out_j) < TOL
+
+
+@pytest.mark.parametrize('nz,nx', [(16, 12), (13, 11), (7, 9)])
+def test_jacobi2_and_presmooth_residual_twin_parity(nz, nx):
+    '''
+    The K6 twins (from u and from zero) and the K9 twin, called through
+    their dispatch functions, against the JAX reference bodies.
+    '''
+    planes, d, mask, b, u, _ = _inputs(nz, nx)
+    out_t = tst.jacobi_sweep2_batched(*_t(planes, d, b, u))
+    assert _rel(out_t, jst._jacobi2_ref(*_j(planes, d, b, u))) < TOL
+    out_t = tst.jacobi_sweep2_batched(*_t(planes, d, b))
+    assert _rel(out_t, jst._jacobi2z_ref(*_j(planes, d, b))) < TOL
+    u_t, r_t = tst.presmooth_residual_batched(*_t(planes, d, mask, b))
+    u_j, r_j = jst._ps2r_ref(*_j(planes, d, mask, b))
+    assert _rel(u_t, u_j) < TOL and _rel(r_t, r_j) < TOL
+
+
+def test_jacobi2_and_presmooth_residual_twins_match_pallas():
+    '''
+    complex64 at 16x128, R=2: the K6 twins and the K9 twin against
+    ``jacobi_sweep2_pallas_batched`` and
+    ``presmooth2_residual_pallas_batched`` in interpret mode, as the JAX
+    package's own tests run them on the CPU.
+    '''
+    from zephyr_tpu.ops.pallas_stencil import (
+        jacobi_sweep2_pallas_batched, presmooth2_residual_pallas_batched)
+    planes, d, mask, b, u, _ = _inputs(16, 128, R=2, seed=5)
+    planes, d, b, u = (a.astype(np.complex64) for a in (planes, d, b, u))
+    mask = mask.astype(np.float32)
+    for uu in (u, None):
+        out_p = jacobi_sweep2_pallas_batched(
+            *_j(planes, d, b), None if uu is None else jnp.asarray(uu),
+            interpret=True)
+        args = _t(planes, d, b) + ([] if uu is None else _t(uu))
+        out_t = tst.jacobi_sweep2_batched(*args)
+        assert out_t.dtype == torch.complex64
+        assert _rel(out_t, out_p) < 1e-5
+    u_p, r_p = presmooth2_residual_pallas_batched(*_j(planes, d, mask, b),
+                                                  interpret=True)
+    u_t, r_t = tst.presmooth_residual_batched(*_t(planes, d, mask, b))
+    assert _rel(u_t, u_p) < 1e-5 and _rel(r_t, r_p) < 1e-5
 
 
 def test_block_diag_helpers_parity():

@@ -42,7 +42,14 @@ from zephyr_tpu_torch.solver import multigrid as tmg  # noqa: E402
 from zephyr_tpu_torch.solver import stratified as tsr  # noqa: E402
 from zephyr_tpu_torch.solver.krylov import gmres_cycle  # noqa: E402
 
-FAMILIES = (('K8 apply_block_stencil', ('zt_apply_block_stencil',)),
+FAMILIES = (('K1 apply_stencil', ('zt_apply_stencil',)),
+            ('K2 presmooth_restrict', ('zt_presmooth_restrict',)),
+            ('K3 pcr_sweep', ('zt_pcr_sweep',)),
+            ('K4 prolong_add_smooth', ('zt_prolong_add_smooth',)),
+            ('K5 jacobi_sweep', ('zt_jacobi_sweep_kernel',)),
+            ('K6 jacobi_sweep2', ('zt_jacobi_sweep2',)),
+            ('K8 apply_block_stencil', ('zt_apply_block_stencil',)),
+            ('K9 presmooth_residual', ('zt_presmooth_residual',)),
             ('K7 restrict/prolong', ('zt_restrict', 'zt_prolong')),
             ('cuFFT', ('fft', 'FFT', 'regular_fft', 'vector_fft')),
             ('matmul (cuBLAS)', ('gemm', 'gemv', 'Gemm', 'dot_kernel')),
@@ -69,6 +76,51 @@ def family(name):
         if any(k in name for k in keys):
             return fam
     return 'other'
+
+
+def profile_chunk(run, what):
+    '''
+    Time ``run`` (host clock, synchronised), then profile another call
+    with torch.profiler; print the device time by kernel family, the
+    largest kernels and the idle share (1 - device time / unprofiled
+    wall). Returns (wall, profiled wall, device ms, {family: ms}).
+    '''
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_off = time.perf_counter() - t0
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fams = {}
+    top = []
+    for ev in prof.key_averages():
+        # kernels only: an aten op's device time is that of its kernels
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, 'self_device_time_total',
+                    getattr(ev, 'self_cuda_time_total', 0)) / 1e3
+        if t <= 0:
+            continue
+        fams[family(ev.key)] = fams.get(family(ev.key), 0.0) + t
+        top.append((t, ev.key[:90], ev.count))
+    device = sum(fams.values())
+    print('%s: wall %.3f s (profiler off), %.3f s (profiler on); device '
+          '%.3f s; idle %.1f%% of the unprofiled wall'
+          % (what, wall_off, wall, device / 1e3,
+             100 * (1 - device / 1e3 / wall_off)), flush=True)
+    for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print('  %-24s %9.3f ms  %5.1f%%' % (fam, t, 100 * t / device))
+    for t, key, cnt in sorted(top, reverse=True)[:12]:
+        print('    %9.3f ms  %6d x  %s' % (t, cnt, key))
+    print('kernel launches in the run: %d' % sum(c for _, _, c in top))
+    return wall_off, wall, device, fams
 
 
 def main():
@@ -122,41 +174,8 @@ def main():
     for k, v in comps.items():
         print('  %-55s %8.3f ms' % (k, v), flush=True)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    solver(op, b, max_chunks=1)
-    torch.cuda.synchronize()
-    wall_off = time.perf_counter() - t0
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver(op, b, max_chunks=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    fams = {}
-    top = []
-    for ev in prof.key_averages():
-        # kernels only: an aten op's device time is that of its kernels
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, 'self_device_time_total',
-                    getattr(ev, 'self_cuda_time_total', 0)) / 1e3
-        if t <= 0:
-            continue
-        fams[family(ev.key)] = fams.get(family(ev.key), 0.0) + t
-        top.append((t, ev.key[:90], ev.count))
-    device = sum(fams.values())
-    print('one 16-step chunk: wall %.3f s (profiler off), %.3f s '
-          '(profiler on); device %.3f s; idle %.1f%% of the unprofiled '
-          'wall' % (wall_off, wall, device / 1e3,
-                    100 * (1 - device / 1e3 / wall_off)), flush=True)
-    for fam, t in sorted(fams.items(), key=lambda kv: -kv[1]):
-        print('  %-24s %9.3f ms  %5.1f%%' % (fam, t, 100 * t / device))
-    for t, key, cnt in sorted(top, reverse=True)[:12]:
-        print('    %9.3f ms  %6d x  %s' % (t, cnt, key))
-    print('kernel launches in the chunk: %d' % sum(c for _, _, c in top))
+    wall_off, wall, device, fams = profile_chunk(
+        lambda: solver(op, b, max_chunks=1), 'one 16-step chunk')
     print(json.dumps({'n': n, 'medium': args.medium, 'nsrc': args.nsrc,
                       'components_ms': comps, 'chunk_wall_s': wall_off,
                       'chunk_wall_profiled_s': wall,

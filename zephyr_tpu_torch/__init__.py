@@ -10,12 +10,14 @@ the same path:
                               and its torch twins, the CUDA kernel loader
 - zephyr_tpu_torch.solver   — multigrid, stratified PCR, BiCGStab and the
                               hybrid Helmholtz solve, differentiable
-- zephyr_tpu_torch.backend  — forward modelling (MiniZephyr, sources, the
-                              analytical oracle, grid interpolation)
+- zephyr_tpu_torch.backend  — forward modelling (MiniZephyr, Eurus,
+                              sources, the analytical oracle, grid
+                              interpolation)
 - zephyr_tpu_torch.parallel — the chunked adjoint-state FWI gradient
 - zephyr_tpu_torch.convert  — the JAX package's prepared state into the
                               port's
-- zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K5 and K7 (sm_90a)
+- zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K9 (sm_90a), one
+                              for each TPU kernel of zephyr_tpu
 
 The port imports torch, numpy and scipy, never jax.
 '''

@@ -85,9 +85,10 @@ def operator_from_numpy(tree, device=DEFAULT_DEVICE):
     The port's HelmholtzOperator from a JAX HelmholtzOperator whose
     leaves went through ``np.asarray``, the transposed hierarchy and
     planes included when the JAX operator was prepared
-    ``with_transpose=True``, and a block (TTI) operator's block
-    stratified state and line-smoother levels. A tree that needs an
-    unported path raises NotImplementedError.
+    ``with_transpose=True``, a scalar operator's global or x-panel
+    stratified state with its DFT matrices (``strat_dft``), and a block
+    (TTI) operator's block stratified state and line-smoother levels. A
+    tree that needs an unported path raises NotImplementedError.
     '''
 
     device = resolve_device(device)
@@ -102,15 +103,16 @@ def operator_from_numpy(tree, device=DEFAULT_DEVICE):
         # (3, 2, 2, nz, nx): the block family
         strat = _block_pcr_from_numpy(tree.strat, device)
     elif tree.strat is not None:
+        # the global or the x-panel family (bands P*W wide), with the DFT
+        # matrix pair when the JAX state carries one
         s = tree.strat
-        if getattr(s, 'dft', None) is not None:
-            raise NotImplementedError('operator_from_numpy: only the '
-                                      'scalar FFT stratified solve is '
-                                      'ported')
+        dft = getattr(s, 'dft', None)
+        if dft is not None:
+            dft = tuple(tensor_from_numpy(m, device) for m in dft)
         strat = StratPCR(tensor_from_numpy(s.alphas, device),
                          tensor_from_numpy(s.gammas, device),
                          tensor_from_numpy(s.dinv, device),
-                         tensor_from_numpy(s.ldu, device))
+                         tensor_from_numpy(s.ldu, device), dft)
     return HelmholtzOperator(tensor_from_numpy(tree.planes, device), hier,
                              strat, _opt(tree.cplanes, device), hierT,
                              _opt(getattr(tree, 'planesT', None), device))

@@ -23,8 +23,10 @@ twins.
     K3 pcr_sweep            csrc/k3_pcr_sweep.cu
     K4 prolong_add_smooth   csrc/k4_prolong_add_smooth.cu
     K5 jacobi_sweep         csrc/k5_jacobi_sweep.cu
+    K6 jacobi_sweep2        csrc/k6_jacobi_sweep2.cu
     K7 restrict, prolong    csrc/k7_transfer.cu
     K8 apply_block_stencil  csrc/k8_apply_block_stencil.cu
+    K9 presmooth_residual   csrc/k9_presmooth_residual.cu
 '''
 
 import ctypes
@@ -43,16 +45,19 @@ CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'zephyr_tpu_torch_kernels'
 SOURCES = ('k1_apply_stencil.cu', 'k2_presmooth_restrict.cu',
            'k3_pcr_sweep.cu', 'k4_prolong_add_smooth.cu',
-           'k5_jacobi_sweep.cu', 'k7_transfer.cu',
-           'k8_apply_block_stencil.cu')
+           'k5_jacobi_sweep.cu', 'k6_jacobi_sweep2.cu', 'k7_transfer.cu',
+           'k8_apply_block_stencil.cu', 'k9_presmooth_residual.cu')
 HEADERS = ('zt_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-#: launches of each kernel since the last ``reset_launches()``
+#: launches of each kernel since the last ``reset_launches()`` (K6 counts
+#: its two variants apart: 'jacobi_sweep2' from u, 'jacobi_sweep2_zero'
+#: from zero)
 LAUNCHES = {'apply_stencil': 0, 'presmooth_restrict': 0, 'pcr_sweep': 0,
-            'prolong_add_smooth': 0, 'jacobi_sweep': 0, 'restrict': 0,
-            'prolong': 0, 'apply_block_stencil': 0}
+            'prolong_add_smooth': 0, 'jacobi_sweep': 0, 'jacobi_sweep2': 0,
+            'jacobi_sweep2_zero': 0, 'restrict': 0, 'prolong': 0,
+            'apply_block_stencil': 0, 'presmooth_residual': 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -145,6 +150,8 @@ def _load():
             'zt_pcr_sweep': [P, P, P, P, P, I, I, I, I, I, P],
             'zt_prolong_add_smooth': [P, P, P, P, P, P, P, I, I, I, P],
             'zt_jacobi_sweep': [P, P, P, P, P, I, I, I, P],
+            'zt_jacobi_sweep2': [P, P, P, P, P, I, I, I, P],
+            'zt_presmooth_residual': [P, P, P, P, P, P, I, I, I, P],
             'zt_restrict': [P, P, I, I, I, P],
             'zt_prolong': [P, P, I, I, I, I, I, P],
             'zt_apply_block_stencil': [P, P, P, I, I, I, P],
@@ -323,6 +330,52 @@ def jacobi_sweep(planes, dinv_eff, b, u):
                 dinv_eff.data_ptr(), b.data_ptr(), u.data_ptr(),
                 out.data_ptr(), R, nz, nx)
     return out
+
+
+def jacobi_sweep2(planes, dinv_eff, b, u=None):
+    '''
+    K6: two damped-Jacobi sweeps for b, u (R, nz, nx), planes (9, nz, nx)
+    and dinv_eff (nz, nx), complex64; ``u=None`` starts from zero.
+    '''
+
+    R, nz, nx = _field_dims(b)
+    dev = b.device
+    _check('b', b, torch.complex64, (R, nz, nx), dev)
+    if u is not None:
+        _check('u', u, torch.complex64, (R, nz, nx), dev)
+    _check('planes', planes, torch.complex64, (9, nz, nx), dev)
+    _check('dinv_eff', dinv_eff, torch.complex64, (nz, nx), dev)
+    lib = _load()
+    out = torch.empty_like(b)
+    with torch.cuda.device(dev):
+        _launch('jacobi_sweep2' if u is not None else 'jacobi_sweep2_zero',
+                lib.zt_jacobi_sweep2, planes.data_ptr(),
+                dinv_eff.data_ptr(), b.data_ptr(),
+                None if u is None else u.data_ptr(), out.data_ptr(), R, nz,
+                nx)
+    return out
+
+
+def presmooth_residual(planes, dinv_eff, mask, b):
+    '''
+    K9: (u2, mask * (b - A u2)) of two damped-Jacobi sweeps from zero, for
+    b (R, nz, nx) and dinv_eff (nz, nx) complex64, mask (nz, nx) float32.
+    '''
+
+    R, nz, nx = _field_dims(b)
+    dev = b.device
+    _check('b', b, torch.complex64, (R, nz, nx), dev)
+    _check('planes', planes, torch.complex64, (9, nz, nx), dev)
+    _check('dinv_eff', dinv_eff, torch.complex64, (nz, nx), dev)
+    _check('mask', mask, torch.float32, (nz, nx), dev)
+    lib = _load()
+    u = torch.empty_like(b)
+    res = torch.empty_like(b)
+    with torch.cuda.device(dev):
+        _launch('presmooth_residual', lib.zt_presmooth_residual,
+                planes.data_ptr(), dinv_eff.data_ptr(), mask.data_ptr(),
+                b.data_ptr(), u.data_ptr(), res.data_ptr(), R, nz, nx)
+    return u, res
 
 
 #: the most right-hand sides one K7 launch takes (its grid's z extent)

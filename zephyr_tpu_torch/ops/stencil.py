@@ -250,12 +250,18 @@ def _jacobi_ref(p, d, bb, uu):
     return uu + d * (bb - apply_stencil(p, uu))
 
 
+def _jacobi2_ref(p, d, bb, uu):
+    'Two damped-Jacobi sweeps from uu: twin of K6.'
+    return _jacobi_ref(p, d, bb, _jacobi_ref(p, d, bb, uu))
+
+
 def _jacobi2z_ref(p, d, bb):
+    'Two damped-Jacobi sweeps from zero: twin of K6 with u=None.'
     return _jacobi_ref(p, d, bb, d * bb)
 
 
 def _ps2r_ref(p, d, m, bb):
-    'Two from-zero sweeps + masked residual of the iterate.'
+    'Two from-zero sweeps + masked residual of the iterate: twin of K9.'
 
     u2 = _jacobi2z_ref(p, d, bb)
     return u2, m * (bb - apply_stencil(p, u2))
@@ -337,13 +343,40 @@ def presmooth_restrict_batched(planes, dinv_eff, mask, b, nsweeps):
     '''
 
     if nsweeps not in (1, 2):
-        raise NotImplementedError('presmooth_restrict: nsweeps must be 1 '
-                                  'or 2 (more sweeps need kernel K6)')
+        raise ValueError('presmooth_restrict: nsweeps must be 1 or 2 (the '
+                         'multigrid downstroke runs other counts as '
+                         'presmooth_residual + restrict)')
     if _on_cpu(b):
         ref = _ps2rr_ref if nsweeps == 2 else _ps1rr_ref
         return ref(planes, dinv_eff, mask, b)
     return cuda_kernels.presmooth_restrict(planes, dinv_eff, mask, b,
                                            nsweeps)
+
+
+def jacobi_sweep2_batched(planes, dinv_eff, b, u=None):
+    '''
+    K6: two damped-Jacobi sweeps of a batch in one pass, b, u (R, nz, nx)
+    -> (R, nz, nx); ``u=None`` starts from zero (the first sweep is then
+    dinv_eff * b).
+    '''
+
+    if _on_cpu(b):
+        if u is None:
+            return _jacobi2z_ref(planes, dinv_eff, b)
+        return _jacobi2_ref(planes, dinv_eff, b, u)
+    return cuda_kernels.jacobi_sweep2(planes, dinv_eff, b, u)
+
+
+def presmooth_residual_batched(planes, dinv_eff, mask, b):
+    '''
+    K9: the downstroke of a scalar level without the restriction — two
+    damped-Jacobi sweeps from zero and the masked residual of the
+    iterate. b (R, nz, nx) -> (u2, mask * (b - A u2)), each (R, nz, nx).
+    '''
+
+    if _on_cpu(b):
+        return _ps2r_ref(planes, dinv_eff, mask, b)
+    return cuda_kernels.presmooth_residual(planes, dinv_eff, mask, b)
 
 
 def prolong_add_smooth_batched(planes, dinv_eff, mask, b, u, ec):

@@ -23,6 +23,12 @@ scalar solve is preconditioned by one of:
   V-cycle (K2, K4 and at ``mg_nu2=2`` K5 per level);
 - one V-cycle (``precond='mg'``).
 
+Every V-cycle takes any sweep counts ``mg_nu1``, ``mg_nu2`` >= 0 (more
+than two sweeps run the two-sweep kernel K6). The stratified solve is
+global or, for laterally heterogeneous media (``strat_panels > 1``, which
+``resolve_panels`` picks for them), x-panelled; its x-transform is cuFFT
+or (``strat_dft``) a DFT matmul.
+
 A block solve's hybrid preconditioner is always 'mult' at full
 resolution: the block stratified PCR interior solve built from the fine
 planes (cuFFT and plain torch), the residual against the true operator
@@ -55,8 +61,9 @@ from .multigrid import (build_hierarchy, v_cycle, presmooth_restrict,
                         transpose_hierarchy)
 from .stratified import (stratified_coeffs, pcr_precompute,
                          stratified_apply, transpose_pcr,
-                         stratified_coeffs_block, pcr_precompute_block,
-                         stratified_apply_block)
+                         stratified_coeffs_panels, panel_layout,
+                         panel_solver, stratified_coeffs_block,
+                         pcr_precompute_block, stratified_apply_block)
 
 #: the ROADMAP item that ports the backward of block (TTI) solves
 TTI_GRADIENTS = ('TTI gradients (the transposed block stratified solve '
@@ -119,15 +126,9 @@ def check_config(config, block_size=1):
     if config.mg_smoother not in ('auto', 'line', 'jacobi'):
         no('mg_smoother=%r' % (config.mg_smoother,), "use 'auto', 'line' "
            "or 'jacobi'")
-    if block_size == 1:
-        if config.mg_nu1 not in (1, 2):
-            no('mg_nu1=%d' % config.mg_nu1, 'the downstroke kernel K2 '
-               'takes 1 or 2 sweeps; more need the two-sweep kernel K6 '
-               '(ROADMAP Queue 2); zero sweeps are not ported')
-        if config.mg_nu2 not in (1, 2):
-            no('mg_nu2=%d' % config.mg_nu2, 'the upstroke runs K4 and at '
-               'most one K5 sweep; more need the two-sweep kernel K6 '
-               '(ROADMAP Queue 2); zero sweeps are not ported')
+    if config.mg_nu1 < 0 or config.mg_nu2 < 0:
+        raise ValueError('mg_nu1=%d, mg_nu2=%d: sweep counts must be >= 0'
+                         % (config.mg_nu1, config.mg_nu2))
     if config.precond == 'mg':
         return
     if config.precond != 'hybrid':
@@ -145,12 +146,12 @@ def check_config(config, block_size=1):
         # the block family ignores the x-panel and DFT options, as in the
         # JAX package
         return
-    if config.strat_panels > 1:
-        no('strat_panels=%d' % config.strat_panels, 'the x-panel family '
-           'is not ported yet (ROADMAP Queue 1: x-panels)')
-    if config.strat_dft != 'fft':
-        no('strat_dft=%r' % (config.strat_dft,), 'the DFT-matmul '
-           'x-transform is not ported yet (ROADMAP Queue 3, F2)')
+    if config.strat_dft not in ('fft', 'dft', 'auto'):
+        no('strat_dft=%r' % (config.strat_dft,), "use 'fft', 'dft' or "
+           "'auto'")
+    if config.strat_taper not in ('in', 'out', 'sym', 'dst'):
+        no('strat_taper=%r' % (config.strat_taper,), "use 'in', 'out', "
+           "'sym' or 'dst'")
 
 
 def resolve_solver_config(opts=None, dtype=torch.complex128):
@@ -277,9 +278,22 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
         src_true, src_pp = ctrue, cpp
     else:
         src_true, src_pp = tp, pp
-    l, d, u = stratified_coeffs(src_true, src_pp, config.shift,
-                                config.fft_shift)
-    strat = pcr_precompute(l, d, u)
+    if config.strat_panels > 1:
+        l, d, u = stratified_coeffs_panels(
+            src_true, src_pp, config.shift, config.fft_shift,
+            config.strat_panels, config.strat_overlap,
+            dst=config.strat_taper == 'dst')
+        w_solve = panel_layout(src_true.shape[-1], config.strat_panels,
+                               config.strat_overlap)[1]
+        if config.strat_taper == 'dst':
+            w_solve *= 2
+    else:
+        l, d, u = stratified_coeffs(src_true, src_pp, config.shift,
+                                    config.fft_shift)
+        w_solve = src_true.shape[-1]
+    use_dft = (config.strat_dft == 'dft'
+               or (config.strat_dft == 'auto' and w_solve <= 2048))
+    strat = pcr_precompute(l, d, u, dft=w_solve if use_dft else None)
     cplanes = ctrue if config.hybrid_comp == 'fused' else None
     return HelmholtzOperator(planes, hier, strat, cplanes, hierT, planesT)
 
@@ -328,14 +342,23 @@ def _make_precond(op, config, transpose=False):
 
     planes = (op.planesT if transpose else op.planes).detach()
     strat = transpose_pcr(op.strat) if transpose else op.strat
-
-    def P0(r):
-        if is_block:
-            return stratified_apply_block(strat, r)
-        return stratified_apply(strat, r, transpose=transpose)
-
-    spec_nz = op.strat.ldu.shape[-2]
     nzf, nxf = planes.shape[-2:]
+    # the spectral solve runs on the fine grid or (fft_scale=2) the
+    # Galerkin-coarsened one; panel bands are P*W wide, so key on nz
+    spec_nz = op.strat.ldu.shape[-2]
+    spec_nx = nxf if spec_nz == nzf else (nxf + 1) // 2
+
+    if is_block:
+        def P0(r):
+            return stratified_apply_block(strat, r)
+    elif config.strat_panels > 1:
+        P0 = panel_solver(strat, spec_nx, config.strat_panels,
+                          config.strat_overlap, transpose=transpose,
+                          taper=config.strat_taper)
+    else:
+        def P0(r):
+            return stratified_apply(strat, r, transpose=transpose)
+
     if (config.hybrid_comp == 'fused' and not transpose
             and op.cplanes is not None and len(hier.levels) > 1
             and spec_nz != nzf):

@@ -7,9 +7,11 @@ block (B=2, TTI) operators:
 - coarse-grid operators by exact stencil-space Galerkin coarsening R A P
   (full-weighting restriction, bilinear prolongation), which stays within
   the 9-point stencil class;
-- scalar levels: damped Jacobi smoothing, fused into the level's
-  downstroke (kernel K2) and upstroke (kernel K4), with a second
-  post-smoothing sweep (K5) at nu2 = 2;
+- scalar levels: damped Jacobi smoothing at any sweep counts, fused into
+  the level's downstroke (kernel K2 at nu1 = 1, 2; else sweeps, residual
+  and restriction) and upstroke (kernel K4), further sweeps two at a
+  time (K6) and one left over (K5); the downstroke without the
+  restriction at nu1 = 2 is kernel K9 (``presmooth_residual``);
 - block levels: alternating z/x line smoothing (``smoother='line'``,
   exact damped solves of the tridiagonal band splittings by precomputed
   block PCR) or damped block-Jacobi, each sweep's residual through the
@@ -316,14 +318,30 @@ def _coarse_solve(hier, b):
 LINE_OMEGA = 0.8
 
 
-def _smooth(lvl, u, b, omega, nsweeps):
+def _smooth(lvl, u, b, omega, nsweeps, from_zero=False):
     '''
-    ``nsweeps`` damped smoothing sweeps of a block level, each residual
-    through the block apply (K8 on the card): alternating z/x line
-    sweeps (damped by LINE_OMEGA) when the level carries line states,
-    else damped block-Jacobi.
+    ``nsweeps`` damped smoothing sweeps of a level. A scalar level runs
+    fused damped-Jacobi sweeps: two at a time (K6; from zero when
+    ``from_zero`` says the incoming u is all zero, which saves reading
+    it), and one (K5) for an odd sweep left over. A block level computes
+    each residual through the block apply (K8 on the card): alternating
+    z/x line sweeps (damped by LINE_OMEGA) when the level carries line
+    states, else damped block-Jacobi.
     '''
 
+    if lvl.planes.shape[0] == 1:
+        dinv_eff = omega * lvl.dinv[0, 0]
+        planes, bb, u0 = lvl.planes[0, 0], b[:, 0], u[:, 0]
+        remaining = nsweeps
+        if from_zero and remaining >= 2:
+            u0 = stencil.jacobi_sweep2_batched(planes, dinv_eff, bb)
+            remaining -= 2
+        while remaining >= 2:
+            u0 = stencil.jacobi_sweep2_batched(planes, dinv_eff, bb, u0)
+            remaining -= 2
+        if remaining:
+            u0 = stencil.jacobi_sweep_batched(planes, dinv_eff, bb, u0)
+        return u0[:, None]
     for _ in range(nsweeps):
         r = b - apply_block_stencil_fast(lvl.planes, u)
         if lvl.linez is None:
@@ -338,24 +356,30 @@ def _smooth(lvl, u, b, omega, nsweeps):
 
 def presmooth_residual(lvl, b, omega, nu1):
     '''
-    The downstroke of a block level before the transfer: nu1 smoothing
-    sweeps from zero and the masked residual (u, mask * (b - A u)).
+    The downstroke of a level before the transfer: nu1 smoothing sweeps
+    from zero and the masked residual (u, mask * (b - A u)). A scalar
+    level at nu1 = 2 runs it as one kernel (K9); otherwise the sweeps
+    (``_smooth``) and the residual through the operator apply (K1 or K8).
     '''
 
-    u = _smooth(lvl, torch.zeros_like(b), b, omega, nu1)
+    if lvl.planes.shape[0] == 1 and nu1 == 2:
+        u0, resm = stencil.presmooth_residual_batched(
+            lvl.planes[0, 0], omega * lvl.dinv[0, 0], lvl.mask, b[:, 0])
+        return u0[:, None], resm[:, None]
+    u = _smooth(lvl, torch.zeros_like(b), b, omega, nu1, from_zero=True)
     return u, lvl.mask * (b - apply_block_stencil_fast(lvl.planes, u))
 
 
 def presmooth_restrict(lvl, b, omega, nu1):
     '''
     The complete downstroke of a level, (u, restrict(mask * residual)).
-    A scalar level runs nu1 (1 or 2) damped-Jacobi sweeps from zero, the
-    masked residual and its restriction as one kernel (K2); a block level
-    runs ``presmooth_residual`` and the restriction K7. Returns (u, rc)
-    with u (R, B, nz, nx).
+    A scalar level at nu1 = 1 or 2 runs the sweeps from zero, the masked
+    residual and its restriction as one kernel (K2); other sweep counts
+    and block levels run ``presmooth_residual`` and the restriction K7.
+    Returns (u, rc) with u (R, B, nz, nx).
     '''
 
-    if lvl.planes.shape[0] != 1:
+    if lvl.planes.shape[0] != 1 or nu1 not in (1, 2):
         u, rm = presmooth_residual(lvl, b, omega, nu1)
         return u, restrict(rm)
     u0, rc = stencil.presmooth_restrict_batched(
@@ -366,29 +390,21 @@ def presmooth_restrict(lvl, b, omega, nu1):
 def prolong_add_smooth(lvl, u, b, ec, omega, nu2):
     '''
     The upstroke of a level: u + mask * prolong(ec), then nu2 damped
-    post-smoothing sweeps. A scalar level runs the prolongation, the
-    masked add and the first sweep as one kernel (K4), then at nu2 = 2
-    one more sweep (K5); three or more sweeps run the two-sweep kernel
-    K6, which is not ported yet. A block level prolongs with K7 and
-    smooths with ``_smooth``.
+    post-smoothing sweeps. A scalar level with nu2 >= 1 runs the
+    prolongation, the masked add and the first sweep as one kernel (K4),
+    then the other nu2 - 1 sweeps two at a time (K6) and an odd one left
+    over (K5). Otherwise (a block level, or nu2 = 0) it prolongs with K7
+    and smooths with ``_smooth``.
     '''
 
-    if lvl.planes.shape[0] != 1:
+    if lvl.planes.shape[0] != 1 or nu2 < 1:
         nz, nx = b.shape[-2:]
         return _smooth(lvl, u + lvl.mask * prolong(ec, nz, nx), b, omega,
                        nu2)
-    if nu2 not in (1, 2):
-        raise NotImplementedError(
-            'prolong_add_smooth: mg_nu2=%d; the port runs 1 or 2 '
-            'post-smoothing sweeps (K4, then K5); more need the two-sweep '
-            'kernel K6, not ported yet' % (nu2,))
-    dinv_eff = omega * lvl.dinv[0, 0]
-    planes, bb = lvl.planes[0, 0], b[:, 0]
-    u0 = stencil.prolong_add_smooth_batched(planes, dinv_eff, lvl.mask, bb,
-                                            u[:, 0], ec[:, 0])
-    if nu2 == 2:
-        u0 = stencil.jacobi_sweep_batched(planes, dinv_eff, bb, u0)
-    return u0[:, None]
+    u0 = stencil.prolong_add_smooth_batched(
+        lvl.planes[0, 0], omega * lvl.dinv[0, 0], lvl.mask, b[:, 0],
+        u[:, 0], ec[:, 0])
+    return _smooth(lvl, u0[:, None], b, omega, nu2 - 1)
 
 
 def v_cycle(hier, b, omega=0.6, nu1=2, nu2=2, level=0):

@@ -19,15 +19,26 @@ family (``stratified_apply(..., transpose=True)``, the transpose solves of
 gradients) is reduced from the stored coefficients in full precision and
 swept in plain torch on every device, as the JAX package does.
 
+The x-transform is ``torch.fft`` by default; a state prepared with
+``pcr_precompute(dft=w)`` carries the symmetric DFT matrix pair of width
+w and transforms by full-f32 matmuls instead (``strat_dft='dft'``). Its
+phases are reduced mod w in integers (the JAX package forms them in f32
+and is ~1e-3 off at w = 2048; fault F2, not inherited).
+
+The x-panel family (``stratified_coeffs_panels``,
+``stratified_apply_panels``; ``strat_panels > 1``) partitions x into
+overlapping panels blended by a partition of unity: per-panel row means,
+per-panel x-transforms, and one PCR sweep (K3) over the concatenated
+panel columns, for laterally heterogeneous media.
+
 The block family (``stratified_coeffs_block``, ``pcr_precompute_block``,
 ``stratified_apply_block``) solves a 2x2 block-tridiagonal system per kx
 by the same reduction with pointwise 2x2 block inverses; it runs as
 plain torch on every device, as it does in the JAX package, and also
 serves the multigrid line smoother (``multigrid._line_pcr_states``).
 
-Not ported yet (each raises NotImplementedError): the DFT-matmul
-x-transform (``strat_dft='dft'``), the x-panel family
-(``strat_panels > 1``) and the transposed block family (TTI gradients).
+Not ported yet (raises NotImplementedError): the transposed block family
+(TTI gradients).
 '''
 
 from typing import NamedTuple, Any
@@ -51,6 +62,8 @@ class StratPCR(NamedTuple):
     gammas: Any   # like alphas
     dinv: Any     # (nz, nx) complex, or (2, nz, nx) bf16
     ldu: Any      # (3, nz, nx) original coefficients (full precision)
+    dft: Any = None   # optional (F, Fi) DFT matrix pair, each (w, w)
+                      # complex and symmetric: the x-transforms as matmuls
 
 
 def _pack_bf16(x):
@@ -169,11 +182,58 @@ def tridiag_pcr_solve(l, d, u, b, delta=1e-6):
     return _pcr_sweep_rhs(*_pcr_levels(l, d, u, delta), b)
 
 
-def pcr_precompute(l, d, u, delta=1e-6, quantize=None):
+def dft_mats(w, dtype=torch.complex64, device='cpu'):
+    '''
+    Symmetric DFT matrix pair (F, Fi) of width ``w``: F[x, k] =
+    exp(-2 pi i x k / w), Fi = conj(F) / w, so ``r @ F`` along the last
+    axis is ``torch.fft.fft(r, dim=-1)`` and ``r @ Fi`` its inverse. The
+    product x k is reduced mod w in integers and the phase formed in
+    float64 before the cast to ``dtype`` (fault F2 of the JAX package,
+    which forms the unreduced phase in float32).
+    '''
+
+    x = torch.arange(w, dtype=torch.int64, device=device)
+    m = torch.remainder(x[:, None] * x[None, :], w)
+    phase = (-2.0 * np.pi / w) * m.to(torch.float64)
+    F = torch.exp(1j * phase)
+    return F.to(dtype), (F.conj() / w).to(dtype)
+
+
+def _dft_apply(r, M):
+    '''
+    Contract the last axis of r with a DFT matrix: one full-precision
+    matmul (on the card the TF32 shortcut would keep ~3 digits, so it
+    must be off).
+    '''
+
+    if r.device.type == 'cuda' and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError('DFT x-transform: torch.backends.cuda.matmul.'
+                           'allow_tf32 must be False (full f32 matmul)')
+    return torch.matmul(r, M)
+
+
+def _x_transforms(strat, width):
+    '''
+    The (forward, inverse) x-transforms of a solve of this width: DFT
+    matmuls when the state carries matrices of that width, else
+    ``torch.fft``.
+    '''
+
+    dftm = getattr(strat, 'dft', None)
+    if dftm is not None and dftm[0].shape[-1] == width:
+        return (lambda v: _dft_apply(v, dftm[0]),
+                lambda v: _dft_apply(v, dftm[1]))
+    return (lambda v: torch.fft.fft(v, dim=-1),
+            lambda v: torch.fft.ifft(v, dim=-1))
+
+
+def pcr_precompute(l, d, u, delta=1e-6, quantize=None, dft=None):
     '''
     Run the RHS-independent part of the cyclic reduction once, returning
     a StratPCR for ``pcr_apply``. ``quantize`` (default: on for complex64)
-    stores the factors as bf16 re/im pairs, (nsteps, 2, nz, nx).
+    stores the factors as bf16 re/im pairs, (nsteps, 2, nz, nx). ``dft``
+    (a width, or True for the bands' width) attaches the DFT matrix pair,
+    so the x-transforms run as matmuls.
     '''
 
     ldu = torch.stack([l, d, u], dim=0)
@@ -186,7 +246,11 @@ def pcr_precompute(l, d, u, delta=1e-6, quantize=None):
         alphas = _pack_bf16(alphas).transpose(0, 1).contiguous()
         gammas = _pack_bf16(gammas).transpose(0, 1).contiguous()
         dinv = _pack_bf16(dinv)
-    return StratPCR(alphas, gammas, dinv, ldu)
+    mats = None
+    if dft:
+        w = d.shape[-1] if dft is True else int(dft)
+        mats = dft_mats(w, d.dtype, d.device)
+    return StratPCR(alphas, gammas, dinv, ldu, mats)
 
 
 def _pcr_sweep_bf16_ref(alphas, gammas, dinv, b):
@@ -243,6 +307,51 @@ def _per_row_mean(planes):
     return torch.mean(planes[..., x0:x1], dim=-1)
 
 
+def _auto_fft_shift(planes, precond_planes, shift, x0, x1,
+                    contrast_threshold=1.05):
+    '''
+    The 'auto' spectral shift of a scalar operator, on the device: 0.03j
+    when the within-row contrast of the mass plane over rows
+    [nz/4, 3nz/4) and columns [x0, x1) is below ``contrast_threshold``,
+    else 0.25j (as the JAX package computes it; no host sync).
+    '''
+
+    nz = planes.shape[-2]
+    z0, z1 = nz // 4, max(nz // 4 + 1, (3 * nz) // 4)
+    mass = (planes[0, 0, CENTER, z0:z1, x0:x1]
+            - precond_planes[0, 0, CENTER, z0:z1, x0:x1]) / shift
+    ma = torch.abs(mass)
+    tiny = torch.finfo(ma.dtype).tiny
+    row_mean = torch.clamp(torch.mean(ma, dim=-1, keepdim=True), min=tiny)
+    man = ma / row_mean
+    contrast = torch.sqrt(torch.max(man)
+                          / torch.clamp(torch.min(man), min=tiny))
+    small = torch.tensor(0.03, dtype=ma.dtype, device=ma.device)
+    large = torch.tensor(0.25, dtype=ma.dtype, device=ma.device)
+    return torch.where(contrast < contrast_threshold, small, large) * 1j
+
+
+def _bands(cF, width):
+    '''
+    The (l, d, u) bands over the cross-line wavenumbers of an x-transform
+    of ``width``: T_dz(z, kx) = sum_dx cF[(dz, dx)](z) e^{i kx dx}, from
+    per-row coefficients cF (9, nz); each band (nz, width).
+    '''
+
+    kx = (2 * np.pi) * torch.fft.fftfreq(width, dtype=cF.real.dtype,
+                                         device=cF.device)
+    bands = []
+    for dz in (-1, 0, 1):
+        acc = None
+        for dx in (-1, 0, 1):
+            k = (dz + 1) * 3 + (dx + 1)
+            phase = torch.exp(1j * kx * dx).to(cF.dtype)   # (width,)
+            term = cF[k][:, None] * phase[None, :]
+            acc = term if acc is None else acc + term
+        bands.append(acc)
+    return tuple(bands)
+
+
 def stratified_coeffs(planes, precond_planes, shift, fft_shift,
                       contrast_threshold=1.05):
     '''
@@ -267,40 +376,13 @@ def stratified_coeffs(planes, precond_planes, shift, fft_shift,
     shift = torch.as_tensor(shift, dtype=cdtype, device=c0.device)
     cM = (c0 - cP) / shift
 
-    if isinstance(fft_shift, str):  # 'auto'
-        nz, nx = planes.shape[-2:]
-        z0, z1 = nz // 4, max(nz // 4 + 1, (3 * nz) // 4)
-        x0, x1 = nx // 4, max(nx // 4 + 1, (3 * nx) // 4)
-        mass = (planes[0, 0, CENTER, z0:z1, x0:x1]
-                - precond_planes[0, 0, CENTER, z0:z1, x0:x1]) / shift
-        ma = torch.abs(mass)
-        tiny = torch.finfo(ma.dtype).tiny
-        row_mean = torch.clamp(torch.mean(ma, dim=-1, keepdim=True),
-                               min=tiny)
-        man = ma / row_mean
-        contrast = torch.sqrt(torch.max(man)
-                              / torch.clamp(torch.min(man), min=tiny))
-        small = torch.tensor(0.03, dtype=ma.dtype, device=ma.device)
-        large = torch.tensor(0.25, dtype=ma.dtype, device=ma.device)
-        fft_shift = torch.where(contrast < contrast_threshold, small,
-                                large) * 1j
-    fs = torch.as_tensor(fft_shift, dtype=cdtype, device=c0.device)
-    cF = c0 - fs * cM   # (9, nz)
-
     nx = planes.shape[-1]
-    rdtype = c0.real.dtype
-    kx = (2 * np.pi) * torch.fft.fftfreq(nx, dtype=rdtype,
-                                         device=c0.device)
-    bands = []
-    for dz in (-1, 0, 1):
-        acc = None
-        for dx in (-1, 0, 1):
-            k = (dz + 1) * 3 + (dx + 1)
-            phase = torch.exp(1j * kx * dx).to(cdtype)   # (nx,)
-            term = cF[k][:, None] * phase[None, :]
-            acc = term if acc is None else acc + term
-        bands.append(acc)                                 # (nz, nx)
-    return tuple(bands)   # (l, d, u)
+    if isinstance(fft_shift, str):  # 'auto'
+        x0, x1 = nx // 4, max(nx // 4 + 1, (3 * nx) // 4)
+        fft_shift = _auto_fft_shift(planes, precond_planes, shift, x0, x1,
+                                    contrast_threshold)
+    fs = torch.as_tensor(fft_shift, dtype=cdtype, device=c0.device)
+    return _bands(c0 - fs * cM, nx)   # (l, d, u)
 
 
 def transpose_strat(strat):
@@ -321,15 +403,17 @@ def transpose_pcr(strat, delta=1e-6):
     '''
 
     ldu = strat.ldu if isinstance(strat, StratPCR) else strat
-    return pcr_precompute(*transpose_strat(tuple(ldu)), delta=delta,
-                          quantize=False)
+    pcr = pcr_precompute(*transpose_strat(tuple(ldu)), delta=delta,
+                         quantize=False)
+    # the DFT matrices are symmetric: the transpose reuses them unchanged
+    return pcr._replace(dft=getattr(strat, 'dft', None))
 
 
 def stratified_apply(strat, r, transpose=False):
     '''
-    Apply the stratified interior inverse to r (R, 1, nz, nx): x-FFT,
-    per-kx tridiagonal solve in z (the precomputed PCR sweep), inverse
-    x-FFT.
+    Apply the stratified interior inverse to r (R, 1, nz, nx): x-FFT (or
+    the DFT matmul, see StratPCR.dft), per-kx tridiagonal solve in z (the
+    precomputed PCR sweep), inverse x-transform.
 
     With ``transpose=True``, ``strat`` is the transposed family
     (``transpose_pcr``) and this applies the algebraic transpose
@@ -338,13 +422,218 @@ def stratified_apply(strat, r, transpose=False):
     kernel, in the JAX package or here.
     '''
 
+    fwd, inv = _x_transforms(strat, r.shape[-1])
     if transpose:
-        rhat = torch.fft.ifft(r, dim=-1)
-        xhat = _pcr_sweep_rhs(strat.alphas, strat.gammas, strat.dinv, rhat)
-        return torch.fft.fft(xhat, dim=-1)
-    rhat = torch.fft.fft(r[:, 0], dim=-1)
-    xhat = pcr_apply(strat, rhat)
-    return torch.fft.ifft(xhat, dim=-1)[:, None]
+        xhat = _pcr_sweep_rhs(strat.alphas, strat.gammas, strat.dinv,
+                              inv(r))
+        return fwd(xhat)
+    return inv(pcr_apply(strat, fwd(r[:, 0])))[:, None]
+
+
+# ---------------------------------------------------------------------------
+# x-panelled stratification: the per-row mean misses LATERAL velocity
+# structure. x is partitioned into overlapping panels blended by a
+# partition of unity; per panel, per-row means over ITS window, a
+# per-panel x-transform and z-PCR solve, and a scatter-add of the weighted
+# panel solutions. The panels concatenate along x, so one PCR sweep (K3 on
+# the card) covers them all.
+# ---------------------------------------------------------------------------
+
+def panel_layout(nx, npanels, overlap):
+    '''
+    Static panel windows: cores of width C = nx // npanels (the last core
+    absorbs the remainder), each window extended by ``overlap`` on both
+    sides and clamped to the domain; all windows share one width W.
+    Returns (starts tuple, W). Raises ValueError when the windows leave a
+    column uncovered.
+    '''
+
+    C = nx // npanels
+    W = min(nx, C + (nx - C * (npanels - 1)) % max(C, 1) + 2 * overlap)
+    starts = []
+    for p in range(npanels):
+        s = p * C - overlap
+        starts.append(max(0, min(s, nx - W)))
+    # the last window must reach the domain edge
+    starts[-1] = nx - W
+    covered = np.zeros(nx, bool)
+    for s in starts:
+        covered[s:s + W] = True
+    if not covered.all():
+        raise ValueError('panel_layout: nx=%d npanels=%d overlap=%d leaves '
+                         'columns uncovered' % (nx, npanels, overlap))
+    return tuple(starts), W
+
+
+def panel_weights(nx, npanels, overlap, dtype=np.float32):
+    '''
+    Partition-of-unity blend weights, (P, W): tent ramps of length
+    ``overlap`` at interior panel edges, flat elsewhere, normalized so the
+    pointwise sum over panels is exactly 1 everywhere.
+    '''
+
+    starts, W = panel_layout(nx, npanels, overlap)
+    ramp = max(overlap, 1)
+    w = np.zeros((npanels, nx), np.float64)
+    for p, s in enumerate(starts):
+        x = np.arange(s, s + W)
+        up = np.minimum(1.0, (x - s + 1) / ramp)
+        dn = np.minimum(1.0, (s + W - x) / ramp)
+        w[p, s:s + W] = np.minimum(up, dn)
+    colsum = w.sum(axis=0, keepdims=True)
+    if not colsum.min() > 1.0 / max(overlap, 1) - 1e-9:
+        raise ValueError('panel_weights: coverage hole (min column weight '
+                         '%g)' % colsum.min())
+    w /= colsum
+    out = np.zeros((npanels, W), np.float64)
+    for p, s in enumerate(starts):
+        out[p] = w[p, s:s + W]
+    return out.astype(dtype)
+
+
+def stratified_coeffs_panels(planes, precond_planes, shift, fft_shift,
+                             npanels, overlap, dst=False):
+    '''
+    Per-panel stratified tridiagonal coefficients of a scalar operator:
+    (l, d, u), each (nz, P * W), panel p in columns [p W, (p+1) W), with
+    kx of the panel width W. An 'auto' fft_shift resolves per panel from
+    the within-panel contrast, on the device. ``dst=True`` doubles the kx
+    grid to 2W (the odd-extension solve of taper 'dst'): (nz, P * 2W).
+    '''
+
+    if planes.shape[0] != 1:
+        raise ValueError('stratified_coeffs_panels: scalar operators only')
+    nx = planes.shape[-1]
+    starts, W = panel_layout(nx, npanels, overlap)
+    # interior x-columns for the mean (exclude the x-PML frames)
+    xlo, xhi = nx // 8, nx - nx // 8
+    shift = torch.as_tensor(shift, dtype=planes.dtype, device=planes.device)
+    bands_all = [[], [], []]
+    for s in starts:
+        a, b = max(s, xlo), min(s + W, xhi)
+        if b <= a:          # panel fully inside a PML frame: its window
+            a, b = s, s + W
+        c0 = torch.mean(planes[0, 0, :, :, a:b], dim=-1)          # (9, nz)
+        cP = torch.mean(precond_planes[0, 0, :, :, a:b], dim=-1)
+        cM = (c0 - cP) / shift
+        fshift = fft_shift
+        if isinstance(fshift, str):  # 'auto', per panel
+            fshift = _auto_fft_shift(planes, precond_planes, shift, a, b)
+        fs = torch.as_tensor(fshift, dtype=c0.dtype, device=c0.device)
+        for i, band in enumerate(_bands(c0 - fs * cM, 2 * W if dst else W)):
+            bands_all[i].append(band)
+    return tuple(torch.cat(b, dim=-1) for b in bands_all)
+
+
+def _panel_gather(r, starts, W):
+    '(..., nz, nx) -> (..., nz, P*W) panel-window gather.'
+    return torch.cat([r[..., s:s + W] for s in starts], dim=-1)
+
+
+def _panel_scatter(xp, starts, W, nx):
+    '(..., nz, P*W) -> (..., nz, nx) overlapping scatter-add.'
+    out = torch.zeros(xp.shape[:-1] + (nx,), dtype=xp.dtype,
+                      device=xp.device)
+    for p, s in enumerate(starts):
+        out[..., s:s + W] += xp[..., p * W:(p + 1) * W]
+    return out
+
+
+def _panel_fft(rp, P, W, transform):
+    'Apply an x-transform of width W blockwise to (..., nz, P*W).'
+    out = transform(rp.reshape(rp.shape[:-1] + (P, W)))
+    return out.reshape(rp.shape)
+
+
+def _odd_extend(rp, P, W):
+    '''
+    Per-panel odd (Dirichlet) extension along x: (..., nz, P*W) ->
+    (..., nz, P*2W), each panel followed by its negated reverse, so the
+    periodic solve sees zero-Dirichlet panel edges.
+    '''
+
+    rps = rp.reshape(rp.shape[:-1] + (P, W))
+    ext = torch.cat([rps, -torch.flip(rps, dims=(-1,))], dim=-1)
+    return ext.reshape(rp.shape[:-1] + (P * 2 * W,))
+
+
+def _odd_restrict(xp, P, W):
+    '(..., nz, P*2W) -> (..., nz, P*W): keep each panel\'s first half.'
+    return xp.reshape(xp.shape[:-1] + (P, 2 * W))[..., :W].reshape(
+        xp.shape[:-1] + (P * W,))
+
+
+def panel_solver(strat, nx, npanels, overlap, transpose=False, taper='out'):
+    '''
+    The x-panelled stratified interior inverse as a function r -> x of
+    (R, 1, nz, nx) fields, with the panel layout and the taper weights
+    built once (``stratified_apply_panels`` applies it once). See there
+    for ``taper`` and ``transpose``.
+    '''
+
+    if taper not in ('in', 'out', 'sym', 'dst'):
+        raise ValueError("stratified_apply_panels: taper must be 'in', "
+                         "'out', 'sym' or 'dst', got %r" % (taper,))
+    starts, W = panel_layout(nx, npanels, overlap)
+    P = len(starts)
+    dev, rdt = strat.ldu.device, strat.ldu.real.dtype
+    # float32 weights (and their square roots) as the JAX package has them
+    wts = torch.from_numpy(panel_weights(nx, npanels, overlap)).reshape(P * W)
+    if taper == 'sym':
+        w_in = w_out = torch.sqrt(wts).to(device=dev, dtype=rdt)
+    elif taper == 'in':
+        w_in, w_out = wts.to(device=dev, dtype=rdt), None
+    else:  # 'out', 'dst'
+        w_in, w_out = None, wts.to(device=dev, dtype=rdt)
+    if transpose:
+        w_in, w_out = w_out, w_in
+    dst = taper == 'dst'
+    Wx = 2 * W if dst else W
+    fwd, inv = _x_transforms(strat, Wx)
+    first, last = (inv, fwd) if transpose else (fwd, inv)
+
+    def apply(r):
+        rp = _panel_gather(r[:, 0], starts, W)
+        if w_in is not None:
+            rp = rp * w_in
+        if dst:
+            rp = _odd_extend(rp, P, W)
+        rhat = _panel_fft(rp, P, Wx, first)
+        if transpose:
+            xhat = _pcr_sweep_rhs(strat.alphas, strat.gammas, strat.dinv,
+                                  rhat)
+        else:
+            xhat = pcr_apply(strat, rhat)
+        xp = _panel_fft(xhat, P, Wx, last)
+        if dst:
+            xp = _odd_restrict(xp, P, W)
+        if w_out is not None:
+            xp = xp * w_out
+        return _panel_scatter(xp, starts, W, nx)[:, None]
+
+    return apply
+
+
+def stratified_apply_panels(strat, r, npanels, overlap, transpose=False,
+                            taper='out'):
+    '''
+    Apply the x-panelled stratified interior inverse to r (R, 1, nz, nx):
+    gather panel windows, per-panel x-transform, z-PCR solve over the
+    concatenated panel columns (K3 on the card), inverse transform,
+    partition-of-unity blend, overlapping scatter-add.
+
+    ``taper`` says where the partition-of-unity weights act: 'out' on the
+    solved output, 'in' on the gathered residual, 'sym' square roots on
+    both, 'dst' zero-Dirichlet panel solves by odd extension to width 2W
+    (the bands built with ``dst=True``), weights on the output.
+
+    With ``transpose=True``, ``strat`` is the transposed family
+    (``transpose_pcr``, full precision, swept in plain torch) and the
+    weights move to the other side: the algebraic transpose.
+    '''
+
+    return panel_solver(strat, r.shape[-1], npanels, overlap, transpose,
+                        taper)(r)
 
 
 # ---------------------------------------------------------------------------
