@@ -16,10 +16,14 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    the twin's largest magnitude), and time both, beside the least time
    the card could take (its byte or operation bound) and, where one
    PyTorch call computes the same function (K7: a strided convolution),
-   that call's time; K3 also at nz=2048 (the default config's
-   full-resolution family, 11 levels); K1 also at R=1 and odd shapes
-   (the unbatched apply K10); K8 at 2048^2 and 512^2 x 16 and 37x53 x 3;
-   K6 (from u and from zero) and K9 beside K1/K2/K4;
+   that call's time; K3 also at the 8-panel width of the Marmousi row
+   (nz=1024 x 1536 columns) and at nz=2048 (the default config's
+   full-resolution family, 11 levels); K2 at every level size of the
+   2048^2 hierarchy (2048^2 to 64^2) at R=16 and R=1, and the K2 + K3
+   milliseconds of one production iteration (2 x (K2 at 6 levels + K3));
+   K1 also at R=1 and odd shapes (the unbatched apply K10); K8 at 2048^2
+   and 512^2 x 16 and 37x53 x 3; K6 (from u and from zero) and K9 beside
+   K1/K2/K4;
 4. the forward-modelling oracle: ``MiniZephyr(config) * q`` on the card
    with the production solver options (4) and with no solverOpts, the
    default SolverConfig (4b), against AnalyticalHelmholtz
@@ -473,31 +477,78 @@ def check_kernels():
         torch.cuda.empty_cache()
 
     # K3: half grids of the 2048^2 (nz=1024, 10 levels) and 1024^2
-    # (nz=512, 9 levels) fused cycles, and the full-resolution family of
-    # the default config at 2048^2 (nz=2048, 11 levels, strip width 4);
-    # R=1 and R=16
-    for n, main_R, full in ((2048, 16, False), (1024, None, False),
-                            (2048, 16, True)):
-        pcr = strat_factors(n, full)
-        nz = n if full else n // 2
+    # (nz=512, 9 levels) fused cycles, the 8-panel width of the Marmousi
+    # row (nz=1024 x 1536 columns: the 2048^2 half grid's factors tiled in
+    # x) and the full-resolution family of the default config at 2048^2
+    # (nz=2048, 11 levels); R=1 and R=16
+    from zephyr_tpu_torch.solver.stratified import pack_pcr_factors
+    for n, main_R, key in ((2048, 16, None), (1024, None, None),
+                           (2048, 16, 'pcr_sweep width=1536'),
+                           (2048, 16, 'pcr_sweep nz=2048')):
+        pcr = strat_factors(n, key == 'pcr_sweep nz=2048')
+        planes3 = (pcr.alphas, pcr.gammas, pcr.dinv)
+        packed = pcr.packed
+        if key == 'pcr_sweep width=1536':
+            planes3 = tuple(torch.cat([t, t[..., :512]], dim=-1).contiguous()
+                            for t in planes3)
+            packed = pack_pcr_factors(*planes3)
+        del pcr
+        nsteps, _, nz, nx = planes3[0].shape
         for R in (1, 16):
-            b = torch.complex(torch.randn((R, nz, nz), generator=gen,
+            b = torch.complex(torch.randn((R, nz, nx), generator=gen,
                                           device=DEV),
-                              torch.randn((R, nz, nz), generator=gen,
+                              torch.randn((R, nz, nx), generator=gen,
                                           device=DEV))
-            args = (pcr.alphas, pcr.gammas, pcr.dinv, b)
-            record('pcr_sweep', 'nz=%d levels=%d R=%d'
-                   % (nz, pcr.alphas.shape[0], R),
-                   ck.pcr_sweep(*args),
+            args = planes3 + (b,)
+            record('pcr_sweep', 'nz=%d x %d levels=%d R=%d'
+                   % (nz, nx, nsteps, R),
+                   ck.pcr_sweep(packed, b),
                    stratified._pcr_sweep_bf16_ref(*args),
                    R == main_R,
-                   (lambda: ck.pcr_sweep(*args),
+                   (lambda: ck.pcr_sweep(packed, b),
                     lambda: stratified._pcr_sweep_bf16_ref(*args)),
-                   key='pcr_sweep nz=%d' % nz if full else None,
-                   shape=(nz, nz, R, pcr.alphas.shape[0]))
+                   key=key, shape=(nz, nx, R, nsteps))
             del b, args
-        del pcr
+        del planes3, packed
         torch.cuda.empty_cache()
+
+    # K2 at every level size of the 2048^2 hierarchy (the downstroke of
+    # each smoothed level), R=16 and R=1 (2048^2 x 16 is the main row)
+    for n in (2048, 1024, 512, 256, 128, 64):
+        planes, D, mask, field = level_inputs(n, n, 16, gen)
+        for R in (16, 1):
+            if (n, R) == (2048, 16):
+                continue
+            b = field(R, n, n)
+            record('presmooth_restrict', '%dx%d R=%d nsweeps=2' % (n, n, R),
+                   ck.presmooth_restrict(planes, D, mask, b, 2),
+                   stencil._ps2rr_ref(planes, D, mask, b), True,
+                   (lambda: ck.presmooth_restrict(planes, D, mask, b, 2),
+                    lambda: stencil._ps2rr_ref(planes, D, mask, b)),
+                   key='presmooth_restrict %d^2 R=%d' % (n, R),
+                   shape=(n, n, R))
+            del b
+        del planes, D, mask
+        torch.cuda.empty_cache()
+
+    # K2 + K3 per production iteration: 2 preconditioner applications,
+    # each one K2 at every smoothed level and one K3 sweep
+    k2 = 2 * sum(results['presmooth_restrict %d^2 R=16' % n]['ms']
+                 if n != 2048 else results['presmooth_restrict']['ms']
+                 for n in (2048, 1024, 512, 256, 128, 64))
+    per_it = {'K2_ms': k2,
+              'K3_ms_hom': 2 * results['pcr_sweep']['ms'],
+              'K3_ms_marmousi': 2 * results['pcr_sweep width=1536']['ms'],
+              'K3_ms_default': 2 * results['pcr_sweep nz=2048']['ms']}
+    per_it['K2_K3_ms_hom'] = k2 + per_it['K3_ms_hom']
+    per_it['K2_K3_ms_marmousi'] = k2 + per_it['K3_ms_marmousi']
+    results['per_iteration'] = per_it
+    say('  K2 + K3 per production iteration (2 x (K2 at 6 levels + K3)): '
+        'hom %.3f ms (K2 %.3f, K3 %.3f), marmousi %.3f ms (K3 at the '
+        '8-panel width %.3f); default config K3 %.3f ms'
+        % (per_it['K2_K3_ms_hom'], k2, per_it['K3_ms_hom'],
+           per_it['K2_K3_ms_marmousi'], per_it['K3_ms_marmousi'],
+           per_it['K3_ms_default']))
     return results
 
 

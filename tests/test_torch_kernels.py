@@ -1,6 +1,7 @@
 '''
 The CUDA kernels K1-K9 against their torch twins, on the card,
-complex64, at small and odd shapes (chip_smoke.py runs the same checks
+complex64, at small and odd shapes (K3 at depths 1-1025 with extra
+pass-through levels, K2 with RHS groups, R in {1, 3, 17}) (chip_smoke.py runs the same checks
 at the main path's shapes). Marked ``cuda``: without an NVIDIA GPU and
 nvcc they skip. On a machine with one (where jax is not installed, add
 ``--noconftest``):
@@ -121,9 +122,52 @@ def test_k3_matches_twin(dev, nz, nx, R):
     l, d, u = (_rand(gen, dev, nz, nx) for _ in range(3))
     pcr = stratified.pcr_precompute(l, d + 4.0, u)
     b = _rand(gen, dev, R, nz, nx)
-    args = (pcr.alphas, pcr.gammas, pcr.dinv, b)
-    assert _close(ck.pcr_sweep(*args),
-                  stratified._pcr_sweep_bf16_ref(*args))
+    assert _close(ck.pcr_sweep(pcr.packed, b),
+                  stratified._pcr_sweep_bf16_ref(pcr.alphas, pcr.gammas,
+                                                 pcr.dinv, b))
+
+
+@pytest.mark.parametrize('nz', [1, 2, 3, 31, 33, 1023, 1025])
+@pytest.mark.parametrize('R', [1, 3, 17])
+def test_k3_edge_shapes(dev, nz, R):
+    '''
+    K3 at the column depths around its plan's steps (one lane, one warp,
+    several warps a column), odd column counts, R not a multiple of the
+    RHS group, and two extra pass-through levels.
+    '''
+    nx = 7 if nz > 64 else 13
+    gen = torch.Generator().manual_seed(nz * 31 + R)
+    nsteps = max(1, (nz - 1).bit_length()) + 2
+
+    def factors(*shape):    # bf16 planes of magnitude ~0.3 (stable sweep)
+        return (0.3 * torch.randn(shape, generator=gen)).to(
+            torch.bfloat16).to(dev)
+    al, ga = factors(nsteps, 2, nz, nx), factors(nsteps, 2, nz, nx)
+    dinv = factors(2, nz, nx)
+    packed = stratified.pack_pcr_factors(al, ga, dinv)
+    b = _rand(gen, dev, R, nz, nx)
+    n = ck.LAUNCHES['pcr_sweep']
+    out = stratified.pcr_sweep_batched(al, ga, dinv, b, packed)
+    assert ck.LAUNCHES['pcr_sweep'] == n + 1
+    assert _close(out, stratified._pcr_sweep_bf16_ref(al, ga, dinv, b))
+    with pytest.raises(ValueError):
+        stratified.pcr_sweep_batched(al, ga, dinv, b)
+
+
+@pytest.mark.parametrize('nsweeps', [1, 2])
+@pytest.mark.parametrize('nz,nx,R', [(37, 53, 1), (36, 52, 3),
+                                     (201, 203, 17), (200, 202, 17),
+                                     (64, 64, 3)])
+def test_k2_groups_and_odd_sizes(dev, nsweeps, nz, nx, R):
+    '''
+    K2 at odd and even sizes, with RHS groups of 1 and of 3 (17 RHS at
+    ~200^2: not a multiple of the group), against its twin.
+    '''
+    planes, D, mask, b, _, _ = _operands(dev, nz, nx, R)
+    ref = stencil._ps2rr_ref if nsweeps == 2 else stencil._ps1rr_ref
+    u_k, rc_k = ck.presmooth_restrict(planes, D, mask, b, nsweeps)
+    u_r, rc_r = ref(planes, D, mask, b)
+    assert _close(u_k, u_r) and _close(rc_k, rc_r)
 
 
 @pytest.mark.parametrize('nz,nx,R', SHAPES)

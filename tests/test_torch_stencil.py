@@ -177,3 +177,22 @@ def test_block_diag_helpers_parity():
                                       torch.from_numpy(r[:, :B]))
         a_j = jst.apply_block_stencil(jnp.asarray(p), jnp.asarray(r[:, :B]))
         assert _rel(a_t, a_j) < TOL
+
+
+@pytest.mark.parametrize('n,R,g', [(2048, 16, 16), (1024, 16, 16),
+                                   (512, 16, 8), (256, 16, 3), (128, 16, 1),
+                                   (64, 16, 1), (2048, 1, 1), (201, 17, 3),
+                                   (37, 3, 1)])
+def test_k2_rhs_group(n, R, g):
+    '''
+    K2's RHS group at every level size of the 2048^2 hierarchy and at the
+    edges: as large as R allows while the level launches about two
+    blocks an SM, the groups split evenly.
+    '''
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    assert ck._ps_group(n, n + (n % 2) * 2, R) == g
+    ngroups = -(-R // g)
+    tiles = -(-((n + 1) // 2) // 16) * -(-((n + (n % 2) * 2 + 1) // 2) // 16)
+    assert 1 <= R - (ngroups - 1) * g <= g                # no empty group
+    if g > 1:
+        assert tiles * ngroups >= ck.SM_COUNT * ck.PS_BLOCKS_PER_SM

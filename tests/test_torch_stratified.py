@@ -13,7 +13,10 @@ against zephyr_tpu.
   and transposed) at rel 1e-12 (layout and weights exactly);
 - the DFT-matmul x-transform: against the FFT path at rel 1e-12, and its
   matrices against ``torch.fft`` in complex64 at 2048 to 1e-5, where the
-  JAX package's miss by ~1e-3 (fault F2, not inherited).
+  JAX package's miss by ~1e-3 (fault F2, not inherited);
+- K3's packed factor layout, which unpacks to the bf16 planes (and so to
+  the JAX package's) bit for bit, and K3's launch plans (exact values at
+  the main path's depths, limits over every depth it takes).
 '''
 
 import numpy as np
@@ -269,3 +272,119 @@ def test_dft_mats_reduce_the_phase_mod_w():
                                       dim=-1)).abs().max()) < 1e-5 / w
     F_j = np.asarray(jsr.dft_mats(w, jnp.complex64)[0])
     assert float(np.abs(F_j - exact.numpy()).max()) > 1e-4
+
+
+def _packed_case(family):
+    '''
+    (port StratPCR, JAX bf16 planes or None) of a complex64 family: the
+    global one, the 8-panel one, a JAX state carried by the converter,
+    and an odd depth.
+    '''
+    if family == 'global':
+        l, d, u = [a.astype(np.complex64) for a in _ldu()]
+        return (tsr.pcr_precompute(*map(torch.from_numpy, (l, d, u))),
+                jsr.pcr_precompute(*map(jnp.asarray, (l, d, u))))
+    if family == 'panels8':
+        ct, cp, jct, jcp = _panel_pair()
+        ldu = [np.array(a).astype(np.complex64)
+               for a in jsr.stratified_coeffs_panels(jct, jcp, 0.5j, 'auto',
+                                                     8, 2)]
+        return (tsr.pcr_precompute(*map(torch.from_numpy, ldu)),
+                jsr.pcr_precompute(*map(jnp.asarray, ldu)))
+    if family == 'converted':
+        from zephyr_tpu_torch.convert import operator_from_numpy
+        from zephyr_tpu.solver import helmholtz as jh
+        cfg = jh.SolverConfig(fft_mode='strat', fft_scale=2,
+                              hybrid_comp='fused', mg_min_size=8)
+        c = jnp.asarray(np.full((NZ, NX), 1500. + 0j))
+        rho = jnp.ones((NZ, NX))
+        p = jplanes(c, rho, FREQ)[None, None]
+        pp = jplanes(jshift(c, 0.5j), rho, FREQ, pml_cap=1.0)[None, None]
+        op = jax.tree_util.tree_map(
+            lambda a: a.astype(jnp.complex64) if jnp.iscomplexobj(a) else a,
+            jh.prepare_operator(p, pp, cfg, with_transpose=False))
+        op = op._replace(strat=jsr.pcr_precompute(*op.strat.ldu))
+        t = operator_from_numpy(jax.tree_util.tree_map(np.asarray, op),
+                                device='cpu')
+        return t.strat, op.strat
+    rng = np.random.default_rng(8)                      # 'odd'
+    l, d, u = ((rng.standard_normal((37, 29)) + 1j * rng.standard_normal(
+        (37, 29))).astype(np.complex64) for _ in range(3))
+    return tsr.pcr_precompute(*map(torch.from_numpy, (l, d + 4, u))), None
+
+
+@pytest.mark.parametrize('family', ['global', 'panels8', 'converted', 'odd'])
+def test_packed_factors_unpack_to_planes(family):
+    '''
+    K3's packed factor layout (built once per prepared operator) holds
+    the (nsteps, 2, nz, nx) bf16 planes bit for bit: plain torch unpacks
+    it to the planes, which are the JAX package's.
+    '''
+    p_t, p_j = _packed_case(family)
+    nsteps, _, nz, nx = p_t.alphas.shape
+    assert p_t.packed.dtype == torch.bfloat16
+    assert p_t.packed.shape == (nsteps + 1, nx, nz, 4)
+    assert p_t.packed.is_contiguous()
+    for name, plane in zip(('alphas', 'gammas', 'dinv'),
+                           tsr.unpack_pcr_factors(p_t.packed)):
+        assert np.array_equal(_bits(plane), _bits(getattr(p_t, name))), name
+        if p_j is not None:
+            assert np.array_equal(_bits(plane), _bits(getattr(p_j, name)))
+    # the fourth part of the dinv level is zero, and one word per point
+    assert not p_t.packed[-1, ..., 2:].view(torch.int16).any()
+    if family == 'panels8':
+        assert nx == 8 * tsr.panel_layout(NX // 2, 8, 2)[1]
+
+
+def test_pcr_packed_only_for_bf16_and_needed_on_the_card():
+    l, d, u = (torch.from_numpy(a) for a in _ldu())
+    assert tsr.pcr_precompute(l, d, u).packed is None          # complex128
+    assert tsr.transpose_pcr(tsr.pcr_precompute(
+        l.to(torch.complex64), d.to(torch.complex64),
+        u.to(torch.complex64))).packed is None
+    p = tsr.pcr_precompute(l.to(torch.complex64), d.to(torch.complex64),
+                           u.to(torch.complex64))
+    b = torch.ones((2,) + tuple(l.shape), dtype=torch.complex64)
+    # on the CPU the twin runs on the planes, with or without the layout
+    assert torch.equal(tsr.pcr_apply(p, b),
+                       tsr._pcr_sweep_bf16_ref(p.alphas, p.gammas, p.dinv,
+                                               b))
+
+
+@pytest.mark.parametrize('nz,R,plan', [
+    (1024, 16, (16, 2, 2, 4)),      # the production half grid
+    (2048, 16, (16, 2, 4, 4)),      # the default config, full resolution
+    (1024, 1, (16, 1, 2, 4)),
+    (512, 3, (16, 2, 1, 4)),
+    (256, 17, (8, 4, 1, 4)),
+    (1, 1, (1, 1, 1, 4)),
+    (33, 3, (2, 2, 1, 4)),
+    (4096, 16, (16, 2, 8, 2)),
+    (12800, 16, (16, 1, 25, 1)),
+])
+def test_k3_plan(nz, R, plan):
+    '''
+    K3's launch plan (slots a lane, RHS a thread, warps a column, columns
+    a block) at the main path's depths and at the edges.
+    '''
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    assert ck._pcr_plan(nz, R) == plan
+
+
+def test_k3_plan_limits():
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    for nz in list(range(1, 2100)) + list(range(2100, ck.PCR_MAX_NZ + 1, 97)):
+        for R in (1, 2, 3, 16):
+            k, g, w, cb = ck._pcr_plan(nz, R)
+            threads, nzp = 32 * w * cb, 32 * k * w
+            assert nzp >= nz > nzp - 32 * k            # less than a slab pad
+            assert w == 1 or k == 16
+            assert 1 <= g <= max(1, min(R, 4)) and g in (1, 2, 4)
+            assert threads <= (1024 if (k, g) == (16, 1) else 512)
+            assert cb * g * nzp * 8 <= ck.PCR_SMEM_BUDGET
+            assert 2 * g * k <= 64                      # state registers
+    for nz in (0, ck.PCR_MAX_NZ + 1):
+        with pytest.raises(ValueError):
+            ck._pcr_plan(nz, 1)
+    assert [ck._pcr_levels(n) for n in (1, 2, 3, 4, 5, 1024, 1025)] == \
+        [0, 1, 2, 2, 3, 10, 11]

@@ -17,7 +17,7 @@ import torch
 from .core.device import DEFAULT_DEVICE, resolve_device
 from .solver.helmholtz import HelmholtzOperator
 from .solver.multigrid import MGHierarchy, MGLevel
-from .solver.stratified import StratPCR, StratPCRBlock
+from .solver.stratified import StratPCR, StratPCRBlock, pack_pcr_factors
 
 
 def tensor_from_numpy(a, device=DEFAULT_DEVICE):
@@ -109,10 +109,12 @@ def operator_from_numpy(tree, device=DEFAULT_DEVICE):
         dft = getattr(s, 'dft', None)
         if dft is not None:
             dft = tuple(tensor_from_numpy(m, device) for m in dft)
-        strat = StratPCR(tensor_from_numpy(s.alphas, device),
-                         tensor_from_numpy(s.gammas, device),
-                         tensor_from_numpy(s.dinv, device),
-                         tensor_from_numpy(s.ldu, device), dft)
+        alphas, gammas, dinv = (tensor_from_numpy(a, device)
+                                for a in (s.alphas, s.gammas, s.dinv))
+        packed = (pack_pcr_factors(alphas, gammas, dinv)
+                  if alphas.dtype == torch.bfloat16 else None)
+        strat = StratPCR(alphas, gammas, dinv,
+                         tensor_from_numpy(s.ldu, device), dft, packed)
     return HelmholtzOperator(tensor_from_numpy(tree.planes, device), hier,
                              strat, _opt(tree.cplanes, device), hierT,
                              _opt(getattr(tree, 'planesT', None), device))

@@ -15,153 +15,299 @@
 // presmooth2_restrict_pallas_batched (kernel body _ps2rr_kernel_rb, both
 // its nsweeps=2 and nsweeps=1 variants).
 //
-// Bound on the card: device-memory bytes — it reads b once and writes u
-// and the quarter-size rc; the two stencil applies and the restriction
-// are ~50 flops per fine point per sweep, far below the compute roof.
-// Design: a block owns a 2*TC x 2*TC fine tile (TC x TC coarse outputs)
-// for one RHS; the RHS is the fastest grid index, so the R blocks of a
-// tile are resident together and the 9 planes come from device memory
-// about once, the other R-1 reads hitting the L2. It loads b with a halo of NSWEEPS+1 cells on the low side
-// and NSWEEPS on the high side into shared memory and recomputes each
-// sweep on a region one cell larger than the next stage needs, so u1, u2
-// and the residual live only in shared memory; device memory sees b in,
-// u and rc out. Points outside the grid are held at zero in every stage,
-// which is the stencil's zero extension.
+// Bound on the card: device-memory bytes. Each fine point needs its 9
+// planes, D and the mask once (84 B) and, per RHS, b in (8 B), u out (8 B)
+// and a quarter of rc (2 B); the two stencil applies and the restriction
+// are ~200 flops per point per RHS, far below the compute roof. The earlier
+// design ran one block per (RHS, tile) and read the coefficients from
+// global memory in both stencil stages of every block: ~13 GB of L2
+// traffic per launch at 2048^2 x 16 against a 1.56 GB floor.
+// Design (the whole-batch frame of the JAX kernel _ps2rr_kernel_rb): a
+// block owns a 32 x 32 fine tile (16 x 16 coarse outputs) for a group of G
+// RHS (the wrapper, cuda_kernels._ps_group, picks G so that every level
+// still launches about two blocks an SM). Its 640 threads load the tile's
+// coefficients once, into registers: each thread owns a vertical pair of
+// points of the stencil region and keeps their 9 planes, D and mask (42
+// floats), plus D at its points of the frame, and applies them to every
+// RHS of the group; the pair reads the 4 x 3 window of its two stencils
+// once. The b frames (the tile with a halo of NSWEEPS+1 cells below and
+// NSWEEPS above) stream through a double-buffered shared ring by cp.async
+// with zero fill, two RHS a pass, so the next pass's frames load while the
+// current ones are smoothed, their residual formed and restricted. Each
+// sweep is recomputed on a region one cell wider than the next stage
+// needs, so u1, u2 and the residual live only in shared memory; points
+// outside the grid hold zero in every stage, which is the stencil's zero
+// extension. Stage structure and summation order are the twin's. Bytes at
+// 2048^2 x 16 (G = 16): coefficients 84 B x (35/32)^2 per point once, the
+// field ~21 B per point per RHS: ~1.8 GB of device memory (0.54 ms at the
+// card's rate). Measured ~1.27 ms on an H100 (PERF.md): the time an extra
+// RHS adds is ~3.4x its byte share, and it hardly moved with the thread
+// count, the RHS a pass, a 16 x 16 tile or the paired window (variants
+// tried while building this one), so neither occupancy, barrier count nor
+// shared-memory loads alone set it.
 
 #include "zt_common.cuh"
 
 #define K2_TC 16            // coarse outputs per tile side
 #define K2_F (2 * K2_TC)    // fine points per tile side
-#define K2_THREADS 256
+#define K2_THREADS 640      // a thread for every vertical pair (35 x 18)
+#define K2_RP 2             // RHS a pass: their stages share the barriers
 
 template <int NSWEEPS>
-__global__ void __launch_bounds__(K2_THREADS)
+struct K2Frame {
+    static constexpr int L = NSWEEPS + 1;              // low-side halo
+    static constexpr int S = K2_F + 2 * NSWEEPS + 1;   // frame side
+    static constexpr int NF = S * S;
+};
+
+// One stencil stage at a thread's vertical pair of region points (frame
+// cells (qi0, qj) and (qi0 + 1, qj); the second only when prow + 1 < C):
+// SWEEP: out = u + D (b - A u) (a Jacobi sweep), else out = mask (b - A u)
+// (the residual). The 4 x 3 window of u is read once for both points; each
+// point sums its 9 products in the twin's order. Points outside the grid
+// (their bit of inc clear) get zero.
+template <int NSWEEPS, bool SWEEP>
+__device__ __forceinline__ void stencil_pair(
+        const float2* __restrict__ u, const float2* __restrict__ bs,
+        float2* __restrict__ out, const float2 (&pc)[2][9],
+        const float2 (&dc)[2], const float (&mc)[2], unsigned inc, int qi0,
+        int qj, int prow) {
+    constexpr int S = K2Frame<NSWEEPS>::S;
+    constexpr int C = S - 2;
+    const float2 zero = make_float2(0.f, 0.f);
+    float2 w[4][3];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+            w[r][c] = r < 3 || prow + 1 < C
+                ? u[(qi0 - 1 + r) * S + qj - 1 + c] : zero;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+        if (p == 1 && prow + 1 >= C) break;
+        const int i = (qi0 + p) * S + qj;
+        float2 v = zero;
+        if ((inc >> p) & 1u) {
+            float2 au = zero;
+#pragma unroll
+            for (int t = 0; t < 9; ++t)
+                au = cadd(au, cmul(pc[p][t],
+                                   w[p + 1 + off_dz(t)][1 + off_dx(t)]));
+            v = SWEEP ? cadd(w[p + 1][1], cmul(dc[p], csub(bs[i], au)))
+                      : cscale(mc[p], csub(bs[i], au));
+        }
+        out[i] = v;
+    }
+}
+
+template <int NSWEEPS>
+__global__ void __launch_bounds__(K2_THREADS, 1)
 zt_presmooth_restrict_kernel(const float2* __restrict__ planes,
                              const float2* __restrict__ D,
                              const float* __restrict__ mask,
                              const float2* __restrict__ b,
                              float2* __restrict__ u_out,
                              float2* __restrict__ rc,
-                             int nz, int nx) {
-    constexpr int L = NSWEEPS + 1;            // low-side halo
-    constexpr int S = K2_F + 2 * NSWEEPS + 1; // shared frame side
-    __shared__ float2 b_s[S][S];
-    __shared__ float2 u1_s[S][S];
-    __shared__ float2 u2_s[S][S];   // unused when NSWEEPS = 1
-    __shared__ float2 res_s[S][S];
-    float2 (*ul)[S] = NSWEEPS == 2 ? u2_s : u1_s;   // the last iterate
+                             int R, int nz, int nx, int G) {
+    constexpr int L = K2Frame<NSWEEPS>::L;
+    constexpr int S = K2Frame<NSWEEPS>::S;
+    constexpr int NF = K2Frame<NSWEEPS>::NF;
+    constexpr int RP = K2_RP;
+    constexpr int C = S - 2;                  // stencil region [1, S-1)^2
+    constexpr int PF = (NF + K2_THREADS - 1) / K2_THREADS;
+    constexpr int NRB = (C + 1) / 2;          // vertical pairs a column
+    static_assert(C * NRB <= K2_THREADS, "a thread for every pair");
+    // the ring of b frames [2][RP][NF], then u1 [RP][NF] (the residual at
+    // NSWEEPS = 2) and u2 [RP][NF] (the residual at NSWEEPS = 1)
+    extern __shared__ float2 sm[];
+    float2* ring = sm;
+    float2* u1_s = sm + 2 * RP * NF;
+    float2* u2_s = u1_s + RP * NF;
+    float2* ul = NSWEEPS == 2 ? u2_s : u1_s;    // the last iterate
+    float2* res_s = NSWEEPS == 2 ? u1_s : u2_s;
 
+    const int tid = threadIdx.x;
     const int nzc = (nz + 1) / 2, nxc = (nx + 1) / 2;
-    const int I0 = blockIdx.z * K2_TC, J0 = blockIdx.y * K2_TC;
+    const int I0 = blockIdx.y * K2_TC, J0 = blockIdx.x * K2_TC;
     const int zb = 2 * I0 - L, xb = 2 * J0 - L;   // frame origin (fine)
-    const int r = blockIdx.x;
     const long long plane = (long long)nz * nx;
-    const float2* br = b + r * plane;
+    const int r0 = blockIdx.z * G;
+    const int nr = min(G, R - r0);
+    const int npass = (nr + RP - 1) / RP;
     const float2 zero = make_float2(0.f, 0.f);
 
-    // stage 0: b and u1 = D b on the whole frame
-    for (int q = threadIdx.x; q < S * S; q += K2_THREADS) {
-        const int qi = q / S, qj = q % S;
-        const int z = zb + qi, x = xb + qj;
-        float2 bv = zero, uv = zero;
-        if (z >= 0 && z < nz && x >= 0 && x < nx) {
-            const long long p = (long long)z * nx + x;
-            bv = br[p];
-            uv = cmul(D[p], bv);
-        }
-        b_s[qi][qj] = bv;
-        u1_s[qi][qj] = uv;
-    }
-    __syncthreads();
-
-    // stage 1 (NSWEEPS = 2): u2 = u1 + D (b - A u1), frame [1, S-1)
-    if (NSWEEPS == 2) {
-        for (int q = threadIdx.x; q < (S - 2) * (S - 2);
-             q += K2_THREADS) {
-            const int qi = 1 + q / (S - 2), qj = 1 + q % (S - 2);
-            const int z = zb + qi, x = xb + qj;
-            float2 v = zero;
-            if (z >= 0 && z < nz && x >= 0 && x < nx) {
-                const long long p = (long long)z * nx + x;
-                float2 au = zero;
-#pragma unroll
-                for (int k = 0; k < 9; ++k)
-                    au = cadd(au, cmul(planes[k * plane + p],
-                                       u1_s[qi + off_dz(k)][qj + off_dx(k)]));
-                v = cadd(u1_s[qi][qj], cmul(D[p], csub(b_s[qi][qj], au)));
+    // the frames of pass k (RHS r0 + RP k ..), zeros past the group
+    auto issue = [&](int k) {
+        float2* dst = ring + (k & 1) * RP * NF;
+        for (int e = 0; e < RP; ++e) {
+            const int r = RP * k + e;
+            const float2* br = b + (r0 + r) * plane;
+            for (int q = tid; q < NF; q += K2_THREADS) {
+                const int z = zb + q / S, x = xb + q % S;
+                const bool ok = r < nr && z >= 0 && z < nz && x >= 0
+                                && x < nx;
+                cp_async<8>(dst + e * NF + q,
+                            ok ? br + (long long)z * nx + x : b, ok);
             }
-            u2_s[qi][qj] = v;
+        }
+        cp_async_commit();
+    };
+    issue(0);   // in flight while the coefficients load
+
+    // this thread's coefficients: D on its frame points (stage 0); the 9
+    // planes, D and the mask on its points of the stencil region
+    float2 d0[PF];
+    unsigned in0 = 0u;
+#pragma unroll
+    for (int k = 0; k < PF; ++k) {
+        const int q = tid + k * K2_THREADS;
+        const int z = zb + q / S, x = xb + q % S;
+        d0[k] = zero;
+        if (q < NF && z >= 0 && z < nz && x >= 0 && x < nx) {
+            in0 |= 1u << k;
+            d0[k] = D[(long long)z * nx + x];
+        }
+    }
+    // the stencil region by vertical pairs: thread t < C * NRB owns column
+    // t % C, rows 2 (t / C) and 2 (t / C) + 1 of the region (two points
+    // share the 4 x 3 window of their stencils)
+    const int pcol = tid % C, prow = 2 * (tid / C);
+    const bool pair_ok = tid < C * NRB;
+    const int qi0 = 1 + prow, qj = 1 + pcol;    // the first point's frame cell
+    float2 pc[2][9], dc[2];
+    float mc[2];
+    unsigned inc = 0u;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        const int z = zb + qi0 + k, x = xb + qj;
+        dc[k] = zero;
+        mc[k] = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) pc[k][t] = zero;
+        if (pair_ok && prow + k < C && z >= 0 && z < nz && x >= 0
+            && x < nx) {
+            inc |= 1u << k;
+            const long long p = (long long)z * nx + x;
+#pragma unroll
+            for (int t = 0; t < 9; ++t) pc[k][t] = planes[t * plane + p];
+            dc[k] = D[p];
+            mc[k] = mask[p];
+        }
+    }
+    // the frame ring of u2 is read (stage 2) but never written
+    for (int q = tid; q < RP * NF; q += K2_THREADS) u2_s[q] = zero;
+
+    const long long cplane = (long long)nzc * nxc;
+    for (int k = 0; k < npass; ++k) {
+        if (k + 1 < npass) {
+            issue(k + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
         __syncthreads();
-    }
+        const float2* bs = ring + (k & 1) * RP * NF;
 
-    // stage 2: res = mask (b - A u_last), frame [NSWEEPS, S-NSWEEPS)
-    {
-        const int W = S - 2 * NSWEEPS;
-        for (int q = threadIdx.x; q < W * W; q += K2_THREADS) {
-            const int qi = NSWEEPS + q / W, qj = NSWEEPS + q % W;
-            const int z = zb + qi, x = xb + qj;
-            float2 v = zero;
-            if (z >= 0 && z < nz && x >= 0 && x < nx) {
-                const long long p = (long long)z * nx + x;
-                float2 au = zero;
+        // stage 0: u1 = D b on the whole frame
 #pragma unroll
-                for (int k = 0; k < 9; ++k) {
-                    au = cadd(au, cmul(planes[k * plane + p],
-                                       ul[qi + off_dz(k)][qj + off_dx(k)]));
-                }
-                v = cscale(mask[p], csub(b_s[qi][qj], au));
+        for (int j = 0; j < PF; ++j) {
+            const int q = tid + j * K2_THREADS;
+            if (q < NF) {
+                const bool in = (in0 >> j) & 1u;
+#pragma unroll
+                for (int e = 0; e < RP; ++e)
+                    u1_s[e * NF + q] = in ? cmul(d0[j], bs[e * NF + q]) : zero;
             }
-            res_s[qi][qj] = v;
         }
-    }
-    __syncthreads();
+        __syncthreads();
 
-    // restriction: separable tent in z, then in x, then 1/4
-    const long long cplane = (long long)nzc * nxc;
-    for (int q = threadIdx.x; q < K2_TC * K2_TC; q += K2_THREADS) {
-        const int I = I0 + q / K2_TC, J = J0 + q % K2_TC;
-        if (I >= nzc || J >= nxc) continue;
-        const int ci = 2 * I - zb, cj = 2 * J - xb;
-        float2 t[3];
+        // stage 1 (NSWEEPS = 2): u2 = u1 + D (b - A u1) on [1, S-1)^2
+        if (NSWEEPS == 2) {
+            if (pair_ok) {
 #pragma unroll
-        for (int d = -1; d <= 1; ++d)
-            t[d + 1] = cadd(res_s[ci][cj + d],
-                            cscale(0.5f, cadd(res_s[ci + 1][cj + d],
-                                              res_s[ci - 1][cj + d])));
-        const float2 v = cadd(t[1], cscale(0.5f, cadd(t[2], t[0])));
-        rc[r * cplane + (long long)I * nxc + J] = cscale(0.25f, v);
-    }
+                for (int e = 0; e < RP; ++e)
+                    stencil_pair<NSWEEPS, true>(
+                        u1_s + e * NF, bs + e * NF, u2_s + e * NF, pc, dc,
+                        mc, inc, qi0, qj, prow);
+            }
+            __syncthreads();
+        }
 
-    // the smoothed iterate on the tile's own fine points
-    float2* ur = u_out + r * plane;
-    for (int q = threadIdx.x; q < K2_F * K2_F; q += K2_THREADS) {
-        const int qi = L + q / K2_F, qj = L + q % K2_F;
-        const int z = zb + qi, x = xb + qj;
-        if (z >= nz || x >= nx) continue;
-        ur[(long long)z * nx + x] = ul[qi][qj];
+        // stage 2: res = mask (b - A u_last) on [1, S-1)^2 (the restriction
+        // reads [NSWEEPS, S - NSWEEPS)^2; at NSWEEPS = 2 the outer ring of
+        // the region reads u2's zero frame ring and is not used)
+        if (pair_ok) {
+#pragma unroll
+            for (int e = 0; e < RP; ++e)
+                stencil_pair<NSWEEPS, false>(
+                    ul + e * NF, bs + e * NF, res_s + e * NF, pc, dc, mc, inc,
+                    qi0, qj, prow);
+        }
+        __syncthreads();
+
+        for (int e = 0; e < RP; ++e) {
+            const int r = r0 + RP * k + e;
+            if (RP * k + e >= nr) break;
+            const float2* rse = res_s + e * NF;
+            // restriction: separable tent in z, then in x, then 1/4
+            for (int q = tid; q < K2_TC * K2_TC; q += K2_THREADS) {
+                const int I = I0 + q / K2_TC, J = J0 + q % K2_TC;
+                if (I >= nzc || J >= nxc) continue;
+                const int ci = (2 * I - zb) * S + 2 * J - xb;
+                float2 t[3];
+#pragma unroll
+                for (int d = -1; d <= 1; ++d)
+                    t[d + 1] = cadd(rse[ci + d],
+                                    cscale(0.5f, cadd(rse[ci + S + d],
+                                                      rse[ci - S + d])));
+                const float2 v = cadd(t[1], cscale(0.5f, cadd(t[2], t[0])));
+                rc[r * cplane + (long long)I * nxc + J] = cscale(0.25f, v);
+            }
+            // the smoothed iterate on the tile's own fine points
+            float2* ur = u_out + r * plane;
+            for (int q = tid; q < K2_F * K2_F; q += K2_THREADS) {
+                const int qi = L + q / K2_F, qj = L + q % K2_F;
+                const int z = zb + qi, x = xb + qj;
+                if (z >= nz || x >= nx) continue;
+                ur[(long long)z * nx + x] = ul[e * NF + qi * S + qj];
+            }
+        }
+        // every read of this pass's frames and of u1/u2 is done before the
+        // next frames land in this ring slot and stage 0 rewrites u1
+        __syncthreads();
     }
 }
 
+template <int NSWEEPS>
+static int launch_ps(const void* planes, const void* D, const void* mask,
+                     const void* b, void* u, void* rc, int R, int nz,
+                     int nx, int g, cudaStream_t s) {
+    const int nzc = (nz + 1) / 2, nxc = (nx + 1) / 2;
+    const int smem = (int)(4 * K2_RP * K2Frame<NSWEEPS>::NF
+                           * sizeof(float2));
+    cudaError_t err = cudaFuncSetAttribute(
+        zt_presmooth_restrict_kernel<NSWEEPS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(ceil_div(nxc, K2_TC), ceil_div(nzc, K2_TC),
+                    ceil_div(R, g));
+    zt_presmooth_restrict_kernel<NSWEEPS><<<grid, K2_THREADS, smem, s>>>(
+        (const float2*)planes, (const float2*)D, (const float*)mask,
+        (const float2*)b, (float2*)u, (float2*)rc, R, nz, nx, g);
+    return (int)cudaGetLastError();
+}
+
+// g: RHS a block (cuda_kernels._ps_group)
 ZT_EXPORT int zt_presmooth_restrict(const void* planes, const void* D,
                                     const void* mask, const void* b,
                                     void* u, void* rc, int R, int nz,
-                                    int nx, int nsweeps, void* stream) {
-    const int nzc = (nz + 1) / 2, nxc = (nx + 1) / 2;
-    // the RHS index varies fastest, so the R blocks of one tile run
-    // together and share its plane reads through the L2
-    const dim3 grid(R, ceil_div(nxc, K2_TC), ceil_div(nzc, K2_TC));
+                                    int nx, int nsweeps, int g,
+                                    void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (nsweeps == 2) {
-        zt_presmooth_restrict_kernel<2><<<grid, K2_THREADS, 0, s>>>(
-            (const float2*)planes, (const float2*)D, (const float*)mask,
-            (const float2*)b, (float2*)u, (float2*)rc, nz, nx);
-    } else if (nsweeps == 1) {
-        zt_presmooth_restrict_kernel<1><<<grid, K2_THREADS, 0, s>>>(
-            (const float2*)planes, (const float2*)D, (const float*)mask,
-            (const float2*)b, (float2*)u, (float2*)rc, nz, nx);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
+    if (g < 1) return (int)cudaErrorInvalidValue;
+    if (nsweeps == 2)
+        return launch_ps<2>(planes, D, mask, b, u, rc, R, nz, nx, g, s);
+    if (nsweeps == 1)
+        return launch_ps<1>(planes, D, mask, b, u, rc, R, nz, nx, g, s);
+    return (int)cudaErrorInvalidValue;
 }

@@ -35,3 +35,31 @@ __device__ __forceinline__ int off_dx(int k) { return k % 3 - 1; }
 __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
     return (a + b - 1) / b;
 }
+
+// Asynchronous global -> shared copies (Ampere's cp.async, on Hopper too):
+// BYTES (4 or 8) bytes from src to dst, or zeros when ok is false (the
+// source size is then 0 and src is not read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool ok) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const int n = ok ? BYTES : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(d), "l"(src), "n"(BYTES), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// a barrier of the n threads (a multiple of 32) that name barrier id
+// (1-15; 0 is __syncthreads)
+__device__ __forceinline__ void named_bar(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}

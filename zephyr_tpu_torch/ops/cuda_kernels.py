@@ -146,8 +146,8 @@ def _load():
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
             'zt_apply_stencil': [P, P, P, I, I, I, P],
-            'zt_presmooth_restrict': [P, P, P, P, P, P, I, I, I, I, P],
-            'zt_pcr_sweep': [P, P, P, P, P, I, I, I, I, I, P],
+            'zt_presmooth_restrict': [P, P, P, P, P, P, I, I, I, I, I, P],
+            'zt_pcr_sweep': [P, P, P, I, I, I, I, I, I, I, I, I, P],
             'zt_prolong_add_smooth': [P, P, P, P, P, P, P, I, I, I, P],
             'zt_jacobi_sweep': [P, P, P, P, P, I, I, I, P],
             'zt_jacobi_sweep2': [P, P, P, P, P, I, I, I, P],
@@ -229,61 +229,120 @@ def presmooth_restrict(planes, dinv_eff, mask, b, nsweeps):
     _check('mask', mask, torch.float32, (nz, nx), dev)
     if nsweeps not in (1, 2):
         raise ValueError('presmooth_restrict: nsweeps must be 1 or 2')
+    return _presmooth_restrict_launch(planes, dinv_eff, mask, b, nsweeps,
+                                      _ps_group(nz, nx, R))
+
+
+def _presmooth_restrict_launch(planes, dinv_eff, mask, b, nsweeps, g):
+    'K2 with g RHS a block, on checked operands.'
+
+    R, nz, nx = b.shape
     lib = _load()
     u = torch.empty_like(b)
     rc = torch.empty((R, (nz + 1) // 2, (nx + 1) // 2), dtype=b.dtype,
-                     device=dev)
-    with torch.cuda.device(dev):
+                     device=b.device)
+    with torch.cuda.device(b.device):
         _launch('presmooth_restrict', lib.zt_presmooth_restrict,
                 planes.data_ptr(), dinv_eff.data_ptr(), mask.data_ptr(),
                 b.data_ptr(), u.data_ptr(), rc.data_ptr(), R, nz, nx,
-                nsweeps)
+                nsweeps, g)
     return u, rc
 
 
-def pcr_sweep(alphas, gammas, dinv, b):
+#: the H100's streaming multiprocessors, and the blocks K2 should launch
+#: on each (one 640-thread block fits an SM at a time)
+SM_COUNT = 132
+PS_BLOCKS_PER_SM = 2
+
+
+def _ps_group(nz, nx, R):
     '''
-    K3: the bf16-factor PCR sweep; alphas, gammas (nsteps, 2, nz, nx) and
-    dinv (2, nz, nx) bfloat16, b (R, nz, nx) complex64.
+    K2's RHS group: the RHS one block smooths, on the coefficients of its
+    32 x 32 fine tile loaded once. As large as R allows while the level
+    still launches PS_BLOCKS_PER_SM blocks an SM, split evenly (2048^2
+    and 1024^2 x 16: 16; 512^2: 8; 256^2: 3; 128^2 and below: 1).
+    '''
+
+    tiles = -(-((int(nz) + 1) // 2) // 16) * -(-((int(nx) + 1) // 2) // 16)
+    gmax = max(1, tiles * int(R) // (SM_COUNT * PS_BLOCKS_PER_SM))
+    ngroups = -(-int(R) // gmax)
+    return -(-int(R) // ngroups)
+
+
+def pcr_sweep(packed, b):
+    '''
+    K3: the bf16-factor PCR sweep of b (R, nz, nx) complex64, with the
+    factors in the packed layout of ``stratified.pack_pcr_factors``:
+    (nsteps + 1, nx, nz, 4) bfloat16.
     '''
 
     R, nz, nx = _field_dims(b)
     dev = b.device
     _check('b', b, torch.complex64, (R, nz, nx), dev)
-    nsteps = alphas.shape[0] if alphas.dim() == 4 else -1
+    nsteps = packed.shape[0] - 1 if packed.dim() == 4 else 0
     if nsteps < 1:
-        raise ValueError('alphas: expected (nsteps, 2, nz, nx)')
-    _check('alphas', alphas, torch.bfloat16, (nsteps, 2, nz, nx), dev)
-    _check('gammas', gammas, torch.bfloat16, (nsteps, 2, nz, nx), dev)
-    _check('dinv', dinv, torch.bfloat16, (2, nz, nx), dev)
-    tx = _pcr_tx(nz)
+        raise ValueError('packed: expected (nsteps + 1, nx, nz, 4)')
+    _check('packed', packed, torch.bfloat16, (nsteps + 1, nx, nz, 4), dev)
+    return _pcr_sweep_launch(packed, b, _pcr_plan(nz, R))
+
+
+def _pcr_sweep_launch(packed, b, plan):
+    'K3 with a given (k, g, w, cb) plan, on checked operands.'
+
+    R, nz, nx = b.shape
+    nsteps = packed.shape[0] - 1
+    k, g, w, cb = plan
     lib = _load()
     out = torch.empty_like(b)
-    with torch.cuda.device(dev):
-        _launch('pcr_sweep', lib.zt_pcr_sweep, alphas.data_ptr(),
-                gammas.data_ptr(), dinv.data_ptr(), b.data_ptr(),
-                out.data_ptr(), R, nz, nx, nsteps, tx)
+    with torch.cuda.device(b.device):
+        _launch('pcr_sweep', lib.zt_pcr_sweep, packed.data_ptr(),
+                b.data_ptr(), out.data_ptr(), R, nz, nx, nsteps,
+                min(nsteps, _pcr_levels(nz)), k, g, w, cb)
     return out
 
 
-#: shared memory K3 may take for its two column buffers (of the 227 KB a
+#: shared memory K3 may take for its staging and exchange regions (all a
 #: Hopper block can have)
-PCR_SMEM_BUDGET = 200 * 1024
+PCR_SMEM_BUDGET = 227 * 1024
+#: the deepest column K3 takes (32 warps of 16 slots a lane)
+PCR_MAX_NZ = 32 * 32 * 16
 
 
-def _pcr_tx(nz):
+def _pcr_levels(nz):
+    'The PCR levels with stride s = 2^level < nz.'
+    return max(0, (int(nz) - 1).bit_length())
+
+
+def _pcr_plan(nz, R):
     '''
-    K3's strip width: the widest power of two <= 32 whose two buffers of
-    nz x TX complex64 values fit in PCR_SMEM_BUDGET.
+    K3's launch plan (k, g, w, cb) for columns of depth nz and R RHS: k
+    slots a lane (a power of two <= 16), w warps a column (more than one
+    only at k = 16), g RHS a thread (4 at k <= 8, 2 at k = 16, at most the
+    power of two <= R, halved while the block's shared regions exceed
+    PCR_SMEM_BUDGET) and cb columns a block (4, fewer when a column takes
+    more than 4 warps: at most 16 warps a block, or one column of up to 32
+    warps at g = 1). State 2 g k floats and k factor words a thread keep
+    it within 128 registers.
     '''
 
-    tx = 32
-    while tx > 1 and 2 * nz * tx * 8 > PCR_SMEM_BUDGET:
-        tx //= 2
-    if 2 * nz * tx * 8 > PCR_SMEM_BUDGET:
-        raise ValueError('pcr_sweep: nz=%d does not fit one column in '
-                         'shared memory' % nz)
-    return tx
+    nz, R = int(nz), int(R)
+    if not 1 <= nz <= PCR_MAX_NZ:
+        raise ValueError('pcr_sweep: nz=%d outside 1..%d' % (nz, PCR_MAX_NZ))
+    k = 1
+    while k < 16 and 32 * k < nz:
+        k *= 2
+    w = -(-nz // (32 * k))
+    g = 4 if k <= 8 else 2
+    while g > 1 and g > R:
+        g //= 2
+    cb = max(1, min(4, 16 // w))
+    if w > 16:
+        g = 1
+    while g > 1 and cb * g * w * 32 * k * 8 > PCR_SMEM_BUDGET:
+        g //= 2
+    while cb > 1 and cb * g * w * 32 * k * 8 > PCR_SMEM_BUDGET:
+        cb -= 1
+    return k, g, w, cb
 
 
 def prolong_add_smooth(planes, dinv_eff, mask, b, u, ec):

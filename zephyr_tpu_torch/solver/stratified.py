@@ -14,7 +14,8 @@ kx the TRIDIAGONAL system in z solved by parallel cyclic reduction (PCR):
 The RHS-independent part of the reduction runs once at preparation time
 (``pcr_precompute``); each application only sweeps the right-hand side
 (``pcr_apply``), which on the card is kernel K3. complex64 operators
-store the per-level factors as bfloat16 re/im pairs. The transposed
+store the per-level factors as bfloat16 re/im pairs, and once more in
+K3's packed layout (``pack_pcr_factors``). The transposed
 family (``stratified_apply(..., transpose=True)``, the transpose solves of
 gradients) is reduced from the stored coefficients in full precision and
 swept in plain torch on every device, as the JAX package does.
@@ -64,6 +65,7 @@ class StratPCR(NamedTuple):
     ldu: Any      # (3, nz, nx) original coefficients (full precision)
     dft: Any = None   # optional (F, Fi) DFT matrix pair, each (w, w)
                       # complex and symmetric: the x-transforms as matmuls
+    packed: Any = None  # bf16 factors in K3's layout (pack_pcr_factors)
 
 
 def _pack_bf16(x):
@@ -242,15 +244,45 @@ def pcr_precompute(l, d, u, delta=1e-6, quantize=None, dft=None):
     gammas = torch.stack(gammas, 0)
     if quantize is None:
         quantize = d.dtype == torch.complex64
+    packed = None
     if quantize:
         alphas = _pack_bf16(alphas).transpose(0, 1).contiguous()
         gammas = _pack_bf16(gammas).transpose(0, 1).contiguous()
         dinv = _pack_bf16(dinv)
+        packed = pack_pcr_factors(alphas, gammas, dinv)
     mats = None
     if dft:
         w = d.shape[-1] if dft is True else int(dft)
         mats = dft_mats(w, d.dtype, d.device)
-    return StratPCR(alphas, gammas, dinv, ldu, mats)
+    return StratPCR(alphas, gammas, dinv, ldu, mats, packed)
+
+
+def pack_pcr_factors(alphas, gammas, dinv):
+    '''
+    K3's layout of the bf16 factors: (nsteps + 1, nx, nz, 4) bfloat16, for
+    every level, column and row the four parts (alpha re, alpha im, gamma
+    re, gamma im) side by side (one 8-byte word), the rows of a column
+    contiguous; level ``nsteps`` holds (dinv re, dinv im, 0, 0). Built
+    once per prepared operator (``pcr_precompute``, ``convert``); the
+    (nsteps, 2, nz, nx) planes stay for the twin. The bits are the
+    planes' bits (``unpack_pcr_factors`` gives them back).
+    '''
+
+    last = torch.stack([dinv[0], dinv[1], torch.zeros_like(dinv[0]),
+                        torch.zeros_like(dinv[0])], dim=-1)   # (nz, nx, 4)
+    words = torch.cat([torch.stack([alphas[:, 0], alphas[:, 1], gammas[:, 0],
+                                    gammas[:, 1]], dim=-1), last[None]])
+    return words.transpose(1, 2).contiguous()
+
+
+def unpack_pcr_factors(packed):
+    '(alphas, gammas, dinv) planes of a packed layout, bit for bit.'
+
+    p = packed.transpose(1, 2)      # (nsteps + 1, nz, nx, 4)
+    alphas = torch.stack([p[:-1, ..., 0], p[:-1, ..., 1]], dim=1)
+    gammas = torch.stack([p[:-1, ..., 2], p[:-1, ..., 3]], dim=1)
+    dinv = torch.stack([p[-1, ..., 0], p[-1, ..., 1]], dim=0)
+    return alphas.contiguous(), gammas.contiguous(), dinv.contiguous()
 
 
 def _pcr_sweep_bf16_ref(alphas, gammas, dinv, b):
@@ -265,16 +297,21 @@ def _pcr_sweep_bf16_ref(alphas, gammas, dinv, b):
     return b * _unpack_bf16(dinv, b.dtype)
 
 
-def pcr_sweep_batched(alphas, gammas, dinv, b):
+def pcr_sweep_batched(alphas, gammas, dinv, b, packed=None):
     '''
     K3: the bf16-factor RHS sweep of a batch b (R, nz, nx). CPU tensors
-    run the twin, CUDA tensors the kernel; anything else raises.
+    run the twin on the planes, CUDA tensors the kernel on ``packed``
+    (``pack_pcr_factors`` of the same planes, built once by the caller);
+    anything else raises.
     '''
 
     if b.device.type == 'cpu':
         return _pcr_sweep_bf16_ref(alphas, gammas, dinv, b)
     if b.device.type == 'cuda':
-        return cuda_kernels.pcr_sweep(alphas, gammas, dinv, b)
+        if packed is None:
+            raise ValueError('pcr_sweep: the kernel takes the packed '
+                             'factors (pack_pcr_factors, once per operator)')
+        return cuda_kernels.pcr_sweep(packed, b)
     raise RuntimeError('pcr_sweep: no kernel for device %s' % (b.device,))
 
 
@@ -287,7 +324,8 @@ def pcr_apply(pcr, b):
     '''
 
     if pcr.alphas.dtype == torch.bfloat16:
-        return pcr_sweep_batched(pcr.alphas, pcr.gammas, pcr.dinv, b)
+        return pcr_sweep_batched(pcr.alphas, pcr.gammas, pcr.dinv, b,
+                                 pcr.packed)
     if b.device.type != 'cpu':
         raise NotImplementedError('pcr_apply: full-precision factors on '
                                   '%s have no kernel; K3 takes bf16 '
