@@ -21,9 +21,12 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    full-resolution family, 11 levels); K2 at every level size of the
    2048^2 hierarchy (2048^2 to 64^2) at R=16 and R=1, and the K2 + K3
    milliseconds of one production iteration (2 x (K2 at 6 levels + K3));
-   K1 also at R=1 and odd shapes (the unbatched apply K10); K8 at 2048^2
-   and 512^2 x 16 and 37x53 x 3; K6 (from u and from zero) and K9 beside
-   K1/K2/K4;
+   K1 also at R=1 and odd shapes (the unbatched apply K10); K6 (from u
+   and from zero) and K9 beside K1/K2/K4, and K6 again at every level
+   size of the 2048^2 hierarchy at R=16 and R=1; K8 at 2048^2 x 16, at
+   512^2 x 16 (the `eurus` row's fine level) and the other level sizes
+   of its hierarchy (256^2 to 32^2) x 16, at R=1 at 2048^2 and 512^2,
+   and at 37x53 x 3;
 4. the forward-modelling oracle: ``MiniZephyr(config) * q`` on the card
    with the production solver options (4) and with no solverOpts, the
    default SolverConfig (4b), against AnalyticalHelmholtz
@@ -50,7 +53,9 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    SolverConfig; (b) the bench's ``eurus`` row (bench.py:425-484): 512^2
    homogeneous, 16 sources, theta 0.3, eps 0.2, delta 0.1, the production
    config with gmres_restart=20, mg_nu1=mg_nu2=1, make_chunked_solver
-   (chunk 16), warm-up then timed; (c) ``eurus_layered`` at 256^2 on the
+   (chunk 16), warm-up then timed, with its milliseconds per GMRES
+   iteration and the K8 calls whose operands had to be copied to be
+   contiguous; (c) ``eurus_layered`` at 256^2 on the
    4-layer model, timed without a warm-up of its own; (d) the
    line-smoother pin of tests/test_eurus.py:86-123 (128^2 layered,
    solve_info). (b)-(d) must end finite and below their
@@ -62,16 +67,20 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    x-panels (relres <= 1e-5), warm-up then timed; (b) the same row with
    mg_nu1=mg_nu2=3 (K6 both variants, no K2), run once, stopped at (a)'s
    iteration count (it stalls, in the JAX package too: finite and below
-   its start is checked); (c) the public ``multigrid.presmooth_residual``
+   its start is checked), with its milliseconds per iteration; (c) the
+   public ``multigrid.presmooth_residual``
    on level 0 of (a)'s hierarchy at R=16 (K9), held against K2's
    restriction of the same downstroke; (d) the bench's
    ``gradient_marmousi`` row at 512^2 (finite, non-zero); (e) phase 7c's
    autograd-vs-chunked agreement on the 512^2 Marmousi model (2 panels,
    the transposed panel family in the backward).
 
-It prints one JSON line of per-kernel results, the nvidia-smi line, and
-as its last line {"ok": true, "device": {...}}. It needs one CUDA device
-and exits non-zero without one.
+After phase 6 it prints the K6 milliseconds of one nu 3/3 iteration (9b)
+and the K8 milliseconds of one `eurus` GMRES iteration (8b): the launches
+per iteration at each level size, counted in those runs, times that
+level's phase-3 time. It prints one JSON line of per-kernel results, the
+nvidia-smi line, and as its last line {"ok": true, "device": {...}}. It
+needs one CUDA device and exits non-zero without one.
 '''
 
 import json
@@ -244,6 +253,65 @@ def cuda_ms(fn, reps=10, warm=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+class level_launches:
+    '''
+    Count the calls of K6 (each variant) and K8 inside the block by level:
+    {kernel name: {'<n>^2 R=<R>': calls}}. The wrappers are replaced for
+    the block's duration by functions that count and call through, so the
+    kernels' own launch counts are unchanged.
+    '''
+
+    def __enter__(self):
+        from zephyr_tpu_torch.ops import cuda_kernels as ck
+        self.counts = {}
+        self.saved = j2, k8 = ck.jacobi_sweep2, ck.apply_block_stencil
+
+        def tally(name, t):
+            nz, nx = t.shape[-2:]
+            key = ('%d^2' % nz if nz == nx else '%dx%d' % (nz, nx)) \
+                + ' R=%d' % t.shape[0]
+            c = self.counts.setdefault(name, {})
+            c[key] = c.get(key, 0) + 1
+
+        def jacobi_sweep2(planes, dinv_eff, b, u=None):
+            tally('jacobi_sweep2' if u is not None else 'jacobi_sweep2_zero',
+                  b)
+            return j2(planes, dinv_eff, b, u)
+
+        def apply_block_stencil(planes, u):
+            tally('apply_block_stencil', u)
+            return k8(planes, u)
+        ck.jacobi_sweep2 = jacobi_sweep2
+        ck.apply_block_stencil = apply_block_stencil
+        return self
+
+    def __exit__(self, *exc):
+        from zephyr_tpu_torch.ops import cuda_kernels as ck
+        ck.jacobi_sweep2, ck.apply_block_stencil = self.saved
+
+    def per_iter(self, iters):
+        return {name: {lv: n / max(iters, 1) for lv, n in c.items()}
+                for name, c in self.counts.items()}
+
+
+def per_iteration_ms(by_level, kres):
+    '''
+    {kernel name: ms}: the kernel's launches per iteration at each level
+    (``level_launches.per_iter``) times that level's phase-3 time, and
+    the levels phase 3 did not time.
+    '''
+    out, untimed = {}, []
+    for name, levels in by_level.items():
+        out[name] = 0.0
+        for lv, n in levels.items():
+            key = name if lv == '2048^2 R=16' else '%s %s' % (name, lv)
+            if key in kres:
+                out[name] += n * kres[key]['ms']
+            else:
+                untimed.append('%s %s' % (name, lv))
+    return out, untimed
 
 
 def rel_err(out, ref):
@@ -458,9 +526,12 @@ def check_kernels():
         del planes, D, mask, u, u1, b, ec
         torch.cuda.empty_cache()
 
-    # K8: the 2x2 block apply on the shifted Eurus TTI planes
-    for (nz, nx, R, main) in ((2048, 2048, 16, True), (512, 512, 16, False),
-                              (37, 53, 3, False)):
+    # K8: the 2x2 block apply on the shifted Eurus TTI planes, at 2048^2
+    # x 16 (the main row), at every level size of the `eurus` row's 512^2
+    # hierarchy x 16 and at R=1
+    for (n, R) in ((2048, 16), (2048, 1), (512, 16), (512, 1), (256, 16),
+                   (128, 16), (64, 16), (32, 16), (37, 3)):
+        nz, nx = (n, n) if n != 37 else (37, 53)
         desc = '%dx%d R=%d' % (nz, nx, R)
         planes = tti_planes(nz, nx)[1]
         u = torch.complex(torch.randn((R, 2, nz, nx), generator=gen,
@@ -469,9 +540,11 @@ def check_kernels():
                                       device=DEV))
         record('apply_block_stencil', desc,
                ck.apply_block_stencil(planes, u),
-               stencil.apply_block_stencil(planes, u), main,
+               stencil.apply_block_stencil(planes, u), n != 37,
                (lambda: ck.apply_block_stencil(planes, u),
                 lambda: stencil.apply_block_stencil(planes, u)),
+               key=(None if (n, R) == (2048, 16)
+                    else 'apply_block_stencil %d^2 R=%d' % (n, R)),
                shape=(nz, nx, R))
         del planes, u
         torch.cuda.empty_cache()
@@ -512,22 +585,35 @@ def check_kernels():
         del planes3, packed
         torch.cuda.empty_cache()
 
-    # K2 at every level size of the 2048^2 hierarchy (the downstroke of
-    # each smoothed level), R=16 and R=1 (2048^2 x 16 is the main row)
+    # K2 and K6 (both variants) at every level size of the 2048^2
+    # hierarchy (the smoothed levels), R=16 and R=1 (2048^2 x 16 is the
+    # main row)
     for n in (2048, 1024, 512, 256, 128, 64):
         planes, D, mask, field = level_inputs(n, n, 16, gen)
         for R in (16, 1):
             if (n, R) == (2048, 16):
                 continue
-            b = field(R, n, n)
-            record('presmooth_restrict', '%dx%d R=%d nsweeps=2' % (n, n, R),
+            b, u = field(R, n, n), field(R, n, n)
+            desc = '%dx%d R=%d' % (n, n, R)
+            record('presmooth_restrict', desc + ' nsweeps=2',
                    ck.presmooth_restrict(planes, D, mask, b, 2),
                    stencil._ps2rr_ref(planes, D, mask, b), True,
                    (lambda: ck.presmooth_restrict(planes, D, mask, b, 2),
                     lambda: stencil._ps2rr_ref(planes, D, mask, b)),
                    key='presmooth_restrict %d^2 R=%d' % (n, R),
                    shape=(n, n, R))
-            del b
+            record('jacobi_sweep2', desc, ck.jacobi_sweep2(planes, D, b, u),
+                   stencil._jacobi2_ref(planes, D, b, u), True,
+                   (lambda: ck.jacobi_sweep2(planes, D, b, u),
+                    lambda: stencil._jacobi2_ref(planes, D, b, u)),
+                   key='jacobi_sweep2 %d^2 R=%d' % (n, R), shape=(n, n, R))
+            record('jacobi_sweep2_zero', desc, ck.jacobi_sweep2(planes, D, b),
+                   stencil._jacobi2z_ref(planes, D, b), True,
+                   (lambda: ck.jacobi_sweep2(planes, D, b),
+                    lambda: stencil._jacobi2z_ref(planes, D, b)),
+                   key='jacobi_sweep2_zero %d^2 R=%d' % (n, R),
+                   shape=(n, n, R))
+            del b, u
         del planes, D, mask
         torch.cuda.empty_cache()
 
@@ -1009,28 +1095,37 @@ def tti_bench(n, nsrc, medium, card, warm=True):
         _, iters0, relres0 = solver(op, b)
     torch.cuda.synchronize()
     before = dict(ck.LAUNCHES)
+    copies = ck.COPIES['apply_block_stencil']
     trace = []
     t0 = time.perf_counter()
-    x, iters, relres = solver(op, b, trace=trace)
-    torch.cuda.synchronize()
+    with level_launches() as lv:
+        x, iters, relres = solver(op, b, trace=trace)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per_iter = {k: (ck.LAUNCHES[k] - before[k]) / max(iters, 1)
                 for k in ('apply_block_stencil', 'restrict', 'prolong')}
     out = {'row': 'eurus' if medium == 'hom' else 'eurus_layered',
            'n': n, 'nsrc': nsrc, 'iters': iters, 'relres': relres,
            'reached_1e-5': bool(relres <= 1e-5), 'wall_s': wall,
+           'ms_per_iter': 1e3 * wall / max(iters, 1),
            'solves_per_s': nsrc / wall, 'prep_s': t_prep,
            'warmup_iters': iters0, 'warmup_relres': relres0,
-           'launches_per_iter': per_iter, 'trace': compact_trace(trace),
-           'peak_gb': peak_gb()}
+           'launches_per_iter': per_iter,
+           'launches_by_level': lv.per_iter(iters),
+           'k8_copies': ck.COPIES['apply_block_stencil'] - copies,
+           'trace': compact_trace(trace), 'peak_gb': peak_gb()}
     say('TTI %s %d^2 x %d src: iters %d  relres %.3e (1e-5 %s)  wall %.3f s'
-        '  %.3f solves/s  (prep %.2f s; peak %.2f GB; card %s)'
+        '  %.3f solves/s, %.2f ms per GMRES iteration  (prep %.2f s; peak '
+        '%.2f GB; card %s)'
         % (out['row'], n, nsrc, iters, relres,
            'reached' if out['reached_1e-5'] else 'NOT reached', wall,
-           nsrc / wall, t_prep, out['peak_gb'], card))
+           nsrc / wall, out['ms_per_iter'], t_prep, out['peak_gb'], card))
     say('  chunk trace [iterations, worst relres, repeats]: %s'
         % json.dumps(out['trace']))
-    say('  launches per GMRES iteration: %s' % json.dumps(per_iter))
+    say('  launches per GMRES iteration: %s; K8 by level: %s; K8 calls '
+        'whose operands were copied: %d'
+        % (json.dumps(per_iter), json.dumps(out['launches_by_level']),
+           out['k8_copies']))
     if not (np.isfinite(relres) and relres < 1.0):
         fail('TTI %s: relres %r is not finite and below the starting 1.0'
              % (out['row'], relres))
@@ -1140,9 +1235,10 @@ def marmousi_nu33(n, nsrc, card, max_iters):
     before = dict(ck.LAUNCHES)
     trace = []
     t0 = time.perf_counter()
-    x, iters, relres = make_chunked_solver(cfg, chunk=32)(
-        op, b, max_chunks=max(1, -(-max_iters // 32)), trace=trace)
-    torch.cuda.synchronize()
+    with level_launches() as lv:
+        x, iters, relres = make_chunked_solver(cfg, chunk=32)(
+            op, b, max_chunks=max(1, -(-max_iters // 32)), trace=trace)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per_iter = {k: (ck.LAUNCHES[k] - before[k]) / max(iters, 1)
                 for k in ck.LAUNCHES if ck.LAUNCHES[k] > before[k]}
@@ -1151,7 +1247,8 @@ def marmousi_nu33(n, nsrc, card, max_iters):
            'relres': relres, 'reached_1e-5': bool(relres <= 1e-5),
            'wall_s': wall, 'ms_per_iter': 1e3 * wall / max(iters, 1),
            'prep_s': t_prep, 'peak_gb': peak_gb(),
-           'trace': compact_trace(trace), 'launches_per_iter': per_iter}
+           'trace': compact_trace(trace), 'launches_per_iter': per_iter,
+           'launches_by_level': lv.per_iter(iters)}
     say('marmousi nu 3/3 %d^2 x %d src (%d panels): iters %d  relres %.3e '
         '(1e-5 %s)  wall %.3f s, %.2f ms per iteration  (prep %.2f s; peak '
         '%.2f GB; card %s)' % (n, nsrc, cfg.strat_panels, iters, relres,
@@ -1160,7 +1257,8 @@ def marmousi_nu33(n, nsrc, card, max_iters):
                                t_prep, out['peak_gb'], card))
     say('  chunk trace [iterations, worst relres, repeats]: %s'
         % json.dumps(out['trace']))
-    say('  launches per BiCGStab iteration: %s' % json.dumps(per_iter))
+    say('  launches per BiCGStab iteration: %s; K6 by level: %s'
+        % (json.dumps(per_iter), json.dumps(out['launches_by_level'])))
     if not (np.isfinite(relres) and relres < 1.0
             and bool(torch.isfinite(x).all())):
         fail('marmousi nu 3/3: relres %r is not finite and below the '
@@ -1267,6 +1365,16 @@ def main():
                      % (name, path))
     for key in sorted(k for k in kres if k not in KERNELS):
         say('%s: %s' % (key, json.dumps(kres[key])))
+    # K6 per nu 3/3 iteration and K8 per eurus GMRES iteration: the
+    # launches per iteration at each level times its phase-3 time
+    for label, row in (('K6 per marmousi nu 3/3 iteration',
+                        marm['marmousi_nu33']),
+                       ('K8 per eurus GMRES iteration', tti['eurus'])):
+        ms, untimed = per_iteration_ms(row['launches_by_level'], kres)
+        row['kernel_ms_per_iter'] = ms
+        say('%s: %s ms (of %.2f ms an iteration; levels not timed in phase '
+            '3: %s)' % (label, json.dumps(ms), row['ms_per_iter'],
+                        untimed or 'none'))
     say(json.dumps({'runs': runs, 'card': card}))
     say(json.dumps({'gradients': grads, 'card': card}))
     say(json.dumps({'tti': tti, 'card': card}))

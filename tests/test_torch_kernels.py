@@ -1,9 +1,10 @@
 '''
 The CUDA kernels K1-K9 against their torch twins, on the card,
 complex64, at small and odd shapes (K3 at depths 1-1025 with extra
-pass-through levels, K2 with RHS groups, R in {1, 3, 17}) (chip_smoke.py runs the same checks
-at the main path's shapes). Marked ``cuda``: without an NVIDIA GPU and
-nvcc they skip. On a machine with one (where jax is not installed, add
+pass-through levels; K2, K6 and K8 with RHS groups, K6 and K8 also with
+groups the wrappers do not pick; R in {1, 3, 17}) (chip_smoke.py runs the
+same checks at the main path's shapes). Marked ``cuda``: without an NVIDIA
+GPU and nvcc they skip. On a machine with one (where jax is not installed, add
 ``--noconftest``):
 
     python -m pytest tests/test_torch_kernels.py -q
@@ -170,6 +171,50 @@ def test_k2_groups_and_odd_sizes(dev, nsweeps, nz, nx, R):
     assert _close(u_k, u_r) and _close(rc_k, rc_r)
 
 
+ODD_EVEN = [(1, 1), (2, 7), (37, 53), (201, 203), (200, 202)]
+
+
+@pytest.mark.parametrize('R', [1, 3, 17])
+@pytest.mark.parametrize('nz,nx', ODD_EVEN)
+def test_k6_groups_and_odd_sizes(dev, nz, nx, R):
+    '''
+    K6 from u and from zero at odd and even sizes, one grid cell to
+    ~200^2, with R not a multiple of the RHS group (17 RHS at ~200^2 in
+    groups of 3), against its twins, with its own RHS group and with 1, 2
+    and 4 RHS a block.
+    '''
+    planes, D, _, b, u, _ = _operands(dev, nz, nx, R)
+    refs = (stencil._jacobi2_ref(planes, D, b, u),
+            stencil._jacobi2z_ref(planes, D, b))
+    assert _close(ck.jacobi_sweep2(planes, D, b, u), refs[0])
+    assert _close(ck.jacobi_sweep2(planes, D, b), refs[1])
+    for g in sorted({ck._k6_group(nz, nx, R), min(R, 4), 2, 1}):
+        assert _close(ck._jacobi_sweep2_launch(planes, D, b, u, g), refs[0])
+        assert _close(ck._jacobi_sweep2_launch(planes, D, b, None, g),
+                      refs[1])
+
+
+@pytest.mark.parametrize('R', [1, 3, 17])
+@pytest.mark.parametrize('nz,nx', ODD_EVEN)
+def test_k8_groups_and_odd_sizes(dev, nz, nx, R):
+    '''
+    K8 at odd and even sizes with R not a multiple of the RHS group, with
+    its own RHS group and with 1, 2 and 4 RHS a block, against its twin;
+    a transposed view is copied (and counted) first.
+    '''
+    gen = torch.Generator().manual_seed(nz * 7 + nx + R)
+    planes = _rand(gen, dev, 2, 2, 9, nz, nx).contiguous()
+    u = _rand(gen, dev, R, 2, nz, nx).contiguous()
+    ref = stencil.apply_block_stencil(planes, u)
+    assert _close(ck.apply_block_stencil(planes, u), ref)
+    for g in sorted({ck._k8_group(nz, nx, R), min(R, 4), 2, 1}):
+        assert _close(ck._apply_block_stencil_launch(planes, u, g), ref)
+    ut = u.transpose(-1, -2).contiguous().transpose(-1, -2)
+    n = ck.COPIES['apply_block_stencil']
+    assert _close(stencil.apply_block_stencil_batched(planes, ut), ref)
+    assert ck.COPIES['apply_block_stencil'] == n + (not ut.is_contiguous())
+
+
 @pytest.mark.parametrize('nz,nx,R', SHAPES)
 def test_k8_matches_twin(dev, nz, nx, R):
     gen = torch.Generator().manual_seed(nz * 7 + nx)
@@ -179,7 +224,7 @@ def test_k8_matches_twin(dev, nz, nx, R):
     out = stencil.apply_block_stencil_batched(planes, u)
     assert ck.LAUNCHES['apply_block_stencil'] == n + 1
     assert _close(out, stencil.apply_block_stencil(planes, u))
-    # a transposed view (the x-line sweep hands one over) is copied first
+    # a transposed view is copied first
     ut = u.transpose(-1, -2).contiguous().transpose(-1, -2)
     assert _close(stencil.apply_block_stencil_batched(planes, ut),
                   stencil.apply_block_stencil(planes, u))

@@ -196,3 +196,65 @@ def test_k2_rhs_group(n, R, g):
     assert 1 <= R - (ngroups - 1) * g <= g                # no empty group
     if g > 1:
         assert tiles * ngroups >= ck.SM_COUNT * ck.PS_BLOCKS_PER_SM
+
+
+def _groups_cover_once(R, g):
+    'The RHS ranges of the launch grid (r0 = gz g, min(g, R - r0) of them).'
+    seen = []
+    for gz in range(-(-R // g)):
+        r0 = gz * g
+        nr = min(g, R - r0)
+        assert nr >= 1                                    # no empty group
+        seen.extend(range(r0, r0 + nr))
+    return seen == list(range(R))
+
+
+LEVEL_SIZES = [2048, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1]
+
+
+@pytest.mark.parametrize('n', LEVEL_SIZES)
+def test_k6_group(n):
+    '''
+    K6's RHS group for its 16 x 32 tile at every level size of the 2048^2
+    hierarchy down to 1^2: every RHS covered once, at most the launch's
+    group limit, and a group larger than one only while the launch keeps
+    K6_BLOCKS_PER_SM blocks an SM.
+    '''
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    for R in (1, 3, 16, 17):
+        g = ck._k6_group(n, n, R)
+        assert 1 <= g <= R and _groups_cover_once(R, g)
+        assert -(-R // g) <= ck.MAX_GROUPS
+        tiles = -(-n // 16) * -(-n // 32)
+        if g > 1:
+            assert tiles * -(-R // g) >= ck.SM_COUNT * ck.K6_BLOCKS_PER_SM
+    assert ck._k6_group(n, n, 16) == {2048: 16, 1024: 16, 512: 16,
+                                      256: 6}.get(n, 1)
+
+
+@pytest.mark.parametrize('n', LEVEL_SIZES)
+def test_k8_group(n):
+    '''
+    K8's RHS group for its 4 x 32 tile at every level size from 2048^2
+    down to 1^2: every RHS covered once, at most the launch's group
+    limit, and a group larger than one only while the launch keeps
+    K8_BLOCKS_PER_SM blocks an SM.
+    '''
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    for R in (1, 3, 16, 17):
+        g = ck._k8_group(n, n, R)
+        assert 1 <= g <= R and _groups_cover_once(R, g)
+        assert -(-R // g) <= ck.MAX_GROUPS
+        tiles = -(-n // 4) * -(-n // 32)
+        if g > 1:
+            assert tiles * -(-R // g) >= ck.SM_COUNT * ck.K8_BLOCKS_PER_SM
+    assert ck._k8_group(n, n, 16) == {2048: 16, 1024: 16, 512: 16, 256: 8,
+                                      128: 3}.get(n, 1)
+
+
+def test_rhs_group_limit_raises():
+    'A batch needing more than MAX_GROUPS groups is refused before launch.'
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    ck._check_groups(ck.MAX_GROUPS, 1)
+    with pytest.raises(ValueError):
+        ck._check_groups(ck.MAX_GROUPS + 1, 1)

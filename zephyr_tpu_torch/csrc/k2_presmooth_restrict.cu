@@ -60,44 +60,21 @@ struct K2Frame {
     static constexpr int NF = S * S;
 };
 
-// One stencil stage at a thread's vertical pair of region points (frame
-// cells (qi0, qj) and (qi0 + 1, qj); the second only when prow + 1 < C):
-// SWEEP: out = u + D (b - A u) (a Jacobi sweep), else out = mask (b - A u)
-// (the residual). The 4 x 3 window of u is read once for both points; each
-// point sums its 9 products in the twin's order. Points outside the grid
-// (their bit of inc clear) get zero.
+// One stencil stage (zt_common.cuh's stencil_pair) at a thread's vertical
+// pair of region points, written to the frame out (the second point only
+// when it lies in the region).
 template <int NSWEEPS, bool SWEEP>
-__device__ __forceinline__ void stencil_pair(
+__device__ __forceinline__ void stage_pair(
         const float2* __restrict__ u, const float2* __restrict__ bs,
         float2* __restrict__ out, const float2 (&pc)[2][9],
         const float2 (&dc)[2], const float (&mc)[2], unsigned inc, int qi0,
         int qj, int prow) {
     constexpr int S = K2Frame<NSWEEPS>::S;
-    constexpr int C = S - 2;
-    const float2 zero = make_float2(0.f, 0.f);
-    float2 w[4][3];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-            w[r][c] = r < 3 || prow + 1 < C
-                ? u[(qi0 - 1 + r) * S + qj - 1 + c] : zero;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-        if (p == 1 && prow + 1 >= C) break;
-        const int i = (qi0 + p) * S + qj;
-        float2 v = zero;
-        if ((inc >> p) & 1u) {
-            float2 au = zero;
-#pragma unroll
-            for (int t = 0; t < 9; ++t)
-                au = cadd(au, cmul(pc[p][t],
-                                   w[p + 1 + off_dz(t)][1 + off_dx(t)]));
-            v = SWEEP ? cadd(w[p + 1][1], cmul(dc[p], csub(bs[i], au)))
-                      : cscale(mc[p], csub(bs[i], au));
-        }
-        out[i] = v;
-    }
+    const bool has2 = prow + 1 < S - 2;
+    float2 v[2];
+    stencil_pair<S, SWEEP>(u, bs, v, pc, dc, mc, inc, qi0, qj, has2);
+    out[qi0 * S + qj] = v[0];
+    if (has2) out[(qi0 + 1) * S + qj] = v[1];
 }
 
 template <int NSWEEPS>
@@ -226,7 +203,7 @@ zt_presmooth_restrict_kernel(const float2* __restrict__ planes,
             if (pair_ok) {
 #pragma unroll
                 for (int e = 0; e < RP; ++e)
-                    stencil_pair<NSWEEPS, true>(
+                    stage_pair<NSWEEPS, true>(
                         u1_s + e * NF, bs + e * NF, u2_s + e * NF, pc, dc,
                         mc, inc, qi0, qj, prow);
             }
@@ -239,7 +216,7 @@ zt_presmooth_restrict_kernel(const float2* __restrict__ planes,
         if (pair_ok) {
 #pragma unroll
             for (int e = 0; e < RP; ++e)
-                stencil_pair<NSWEEPS, false>(
+                stage_pair<NSWEEPS, false>(
                     ul + e * NF, bs + e * NF, res_s + e * NF, pc, dc, mc, inc,
                     qi0, qj, prow);
         }
@@ -285,9 +262,9 @@ static int launch_ps(const void* planes, const void* D, const void* mask,
     const int nzc = (nz + 1) / 2, nxc = (nx + 1) / 2;
     const int smem = (int)(4 * K2_RP * K2Frame<NSWEEPS>::NF
                            * sizeof(float2));
-    cudaError_t err = cudaFuncSetAttribute(
-        zt_presmooth_restrict_kernel<NSWEEPS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    static bool smem_set[ZT_MAX_DEVICES] = {};
+    cudaError_t err = smem_limit_once(
+        zt_presmooth_restrict_kernel<NSWEEPS>, smem, smem_set);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(ceil_div(nxc, K2_TC), ceil_div(nzc, K2_TC),
                     ceil_div(R, g));

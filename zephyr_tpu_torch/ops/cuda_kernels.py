@@ -11,8 +11,9 @@ unchanged one is reused. Importing this module needs neither ``nvcc``
 nor a GPU.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else; passes complex64 tensors in place (the kernels read them
-as float2 re/im pairs); allocates its outputs with ``torch.empty``;
+anything else (K8 copies an operand that is not contiguous first, and
+counts it in ``COPIES``); passes complex64 tensors in place (the kernels
+read them as float2 re/im pairs); allocates its outputs with ``torch.empty``;
 launches on ``torch.cuda.current_stream()``; raises if the launch
 reports an error; and adds one to its entry of ``LAUNCHES``. A failure
 to build or launch is an exception: nothing falls back to the torch
@@ -68,6 +69,8 @@ build_info = None
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in COPIES:
+        COPIES[k] = 0
 
 
 def _nvcc():
@@ -150,11 +153,11 @@ def _load():
             'zt_pcr_sweep': [P, P, P, I, I, I, I, I, I, I, I, I, P],
             'zt_prolong_add_smooth': [P, P, P, P, P, P, P, I, I, I, P],
             'zt_jacobi_sweep': [P, P, P, P, P, I, I, I, P],
-            'zt_jacobi_sweep2': [P, P, P, P, P, I, I, I, P],
+            'zt_jacobi_sweep2': [P, P, P, P, P, I, I, I, I, P],
             'zt_presmooth_residual': [P, P, P, P, P, P, I, I, I, P],
             'zt_restrict': [P, P, I, I, I, P],
             'zt_prolong': [P, P, I, I, I, I, I, P],
-            'zt_apply_block_stencil': [P, P, P, I, I, I, P],
+            'zt_apply_block_stencil': [P, P, P, I, I, I, I, P],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -229,8 +232,9 @@ def presmooth_restrict(planes, dinv_eff, mask, b, nsweeps):
     _check('mask', mask, torch.float32, (nz, nx), dev)
     if nsweeps not in (1, 2):
         raise ValueError('presmooth_restrict: nsweeps must be 1 or 2')
-    return _presmooth_restrict_launch(planes, dinv_eff, mask, b, nsweeps,
-                                      _ps_group(nz, nx, R))
+    g = _ps_group(nz, nx, R)
+    _check_groups(R, g)
+    return _presmooth_restrict_launch(planes, dinv_eff, mask, b, nsweeps, g)
 
 
 def _presmooth_restrict_launch(planes, dinv_eff, mask, b, nsweeps, g):
@@ -250,23 +254,33 @@ def _presmooth_restrict_launch(planes, dinv_eff, mask, b, nsweeps, g):
 
 
 #: the H100's streaming multiprocessors, and the blocks K2 should launch
-#: on each (one 640-thread block fits an SM at a time)
+#: on each (one of its blocks fits an SM at a time)
 SM_COUNT = 132
 PS_BLOCKS_PER_SM = 2
+#: the most RHS groups one launch takes (its grid's z extent)
+MAX_GROUPS = 65535
+
+
+def _rhs_group(tiles, R, blocks_per_sm):
+    '''
+    The RHS one block takes, on the coefficients of its tile loaded once:
+    as large as R allows while the launch still has ``blocks_per_sm``
+    blocks an SM, the groups split evenly.
+    '''
+
+    gmax = max(1, int(tiles) * int(R) // (SM_COUNT * blocks_per_sm))
+    ngroups = -(-int(R) // gmax)
+    return -(-int(R) // ngroups)
 
 
 def _ps_group(nz, nx, R):
     '''
-    K2's RHS group: the RHS one block smooths, on the coefficients of its
-    32 x 32 fine tile loaded once. As large as R allows while the level
-    still launches PS_BLOCKS_PER_SM blocks an SM, split evenly (2048^2
-    and 1024^2 x 16: 16; 512^2: 8; 256^2: 3; 128^2 and below: 1).
+    K2's RHS group for its 32 x 32 fine tile (2048^2 and 1024^2 x 16: 16;
+    512^2: 8; 256^2: 3; 128^2 and below: 1).
     '''
 
-    tiles = -(-((int(nz) + 1) // 2) // 16) * -(-((int(nx) + 1) // 2) // 16)
-    gmax = max(1, tiles * int(R) // (SM_COUNT * PS_BLOCKS_PER_SM))
-    ngroups = -(-int(R) // gmax)
-    return -(-int(R) // ngroups)
+    return _rhs_group(-(-int(nz) // 32) * -(-int(nx) // 32), R,
+                      PS_BLOCKS_PER_SM)
 
 
 def pcr_sweep(packed, b):
@@ -404,15 +418,45 @@ def jacobi_sweep2(planes, dinv_eff, b, u=None):
         _check('u', u, torch.complex64, (R, nz, nx), dev)
     _check('planes', planes, torch.complex64, (9, nz, nx), dev)
     _check('dinv_eff', dinv_eff, torch.complex64, (nz, nx), dev)
+    g = _k6_group(nz, nx, R)
+    _check_groups(R, g)
+    return _jacobi_sweep2_launch(planes, dinv_eff, b, u, g)
+
+
+#: the blocks K6 should launch on each SM: one wave of the two that fit an
+#: SM at a time (more groups than that only re-read the coefficients)
+K6_BLOCKS_PER_SM = 2
+
+
+def _k6_group(nz, nx, R):
+    '''
+    K6's RHS group for its 16 x 32 tile (``_rhs_group``; 2048^2 to 512^2
+    x 16: 16; 256^2: 6; 128^2 and below: 1).
+    '''
+
+    return _rhs_group(-(-int(nz) // 16) * -(-int(nx) // 32), R,
+                      K6_BLOCKS_PER_SM)
+
+
+def _jacobi_sweep2_launch(planes, dinv_eff, b, u, g):
+    'K6 with g RHS a block, on checked operands.'
+
+    R, nz, nx = b.shape
     lib = _load()
     out = torch.empty_like(b)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(b.device):
         _launch('jacobi_sweep2' if u is not None else 'jacobi_sweep2_zero',
                 lib.zt_jacobi_sweep2, planes.data_ptr(),
                 dinv_eff.data_ptr(), b.data_ptr(),
                 None if u is None else u.data_ptr(), out.data_ptr(), R, nz,
-                nx)
+                nx, g)
     return out
+
+
+def _check_groups(R, g):
+    if -(-int(R) // g) > MAX_GROUPS:
+        raise ValueError('batch %d in groups of %d: more than %d groups'
+                         % (R, g, MAX_GROUPS))
 
 
 def presmooth_residual(planes, dinv_eff, mask, b):
@@ -482,10 +526,29 @@ def prolong(vc, nz, nx):
     return out
 
 
+#: K8's input copies since the last ``reset_launches()``: the calls whose
+#: u or planes were not contiguous and were copied before the launch
+COPIES = {'apply_block_stencil': 0}
+#: the blocks K8 should launch on each SM: one wave of the four that fit
+#: an SM at a time
+K8_BLOCKS_PER_SM = 4
+
+
+def _k8_group(nz, nx, R):
+    '''
+    K8's RHS group for its 4 x 32 tile (``_rhs_group``; 2048^2 and 512^2
+    x 16: 16; 256^2: 8; 128^2: 3; 64^2 and below: 1).
+    '''
+
+    return _rhs_group(-(-int(nz) // 4) * -(-int(nx) // 32), R,
+                      K8_BLOCKS_PER_SM)
+
+
 def apply_block_stencil(planes, u):
     '''
     K8: the 2x2 block apply (A u)[r] for planes (2, 2, 9, nz, nx) and
-    u (R, 2, nz, nx), complex64.
+    u (R, 2, nz, nx), complex64. An operand that is not contiguous is
+    copied first (counted in ``COPIES``).
     '''
 
     if not isinstance(u, torch.Tensor) or u.device.type != 'cuda':
@@ -496,12 +559,25 @@ def apply_block_stencil(planes, u):
     R, _, nz, nx = u.shape
     if min(R, nz, nx) < 1:
         raise ValueError('empty batch or grid: %s' % (tuple(u.shape),))
+    if not (u.is_contiguous() and planes.is_contiguous()):
+        COPIES['apply_block_stencil'] += 1
+        u, planes = u.contiguous(), planes.contiguous()
     dev = u.device
     _check('u', u, torch.complex64, (R, 2, nz, nx), dev)
     _check('planes', planes, torch.complex64, (2, 2, 9, nz, nx), dev)
+    g = _k8_group(nz, nx, R)
+    _check_groups(R, g)
+    return _apply_block_stencil_launch(planes, u, g)
+
+
+def _apply_block_stencil_launch(planes, u, g):
+    'K8 with g RHS a block, on checked operands.'
+
+    R, _, nz, nx = u.shape
     lib = _load()
     out = torch.empty_like(u)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(u.device):
         _launch('apply_block_stencil', lib.zt_apply_block_stencil,
-                planes.data_ptr(), u.data_ptr(), out.data_ptr(), R, nz, nx)
+                planes.data_ptr(), u.data_ptr(), out.data_ptr(), R, nz, nx,
+                g)
     return out

@@ -400,9 +400,7 @@ def apply_block_stencil_batched(planes, u):
 
     if _on_cpu(u):
         return apply_block_stencil(planes, u)
-    # the x-line sweep's update can leave a field with transposed strides
-    return cuda_kernels.apply_block_stencil(planes.contiguous(),
-                                            u.contiguous())
+    return cuda_kernels.apply_block_stencil(planes, u)
 
 
 def apply_block_stencil_fast(planes, u):
