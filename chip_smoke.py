@@ -10,7 +10,7 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    set off and printed);
 2. build the CUDA kernels K1-K9 from zephyr_tpu_torch/csrc with nvcc
    (one nvcc per source, all started together), printing ptxas's
-   register and spill counts;
+   register and spill counts (K9's on a line of its own);
 3. hold each kernel against its plain torch twin on the card, complex64,
    at the main path's shapes and at odd ones (fail above 1e-5 relative to
    the twin's largest magnitude), and time both, beside the least time
@@ -22,7 +22,7 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    2048^2 hierarchy (2048^2 to 64^2) at R=16 and R=1, and the K2 + K3
    milliseconds of one production iteration (2 x (K2 at 6 levels + K3));
    K1 also at R=1 and odd shapes (the unbatched apply K10); K6 (from u
-   and from zero) and K9 beside K1/K2/K4, and K6 again at every level
+   and from zero) and K9 beside K1/K2/K4, and both again at every level
    size of the 2048^2 hierarchy at R=16 and R=1; K8 at 2048^2 x 16, at
    512^2 x 16 (the `eurus` row's fine level) and the other level sizes
    of its hierarchy (256^2 to 32^2) x 16, at R=1 at 2048^2 and 512^2,
@@ -196,6 +196,31 @@ def bound(nbytes, flops):
     t_b = nbytes / PEAK_BYTES_S * 1e3
     t_f = flops / PEAK_F32_FLOPS * 1e3
     return (t_b, 'bytes') if t_b >= t_f else (t_f, 'operations')
+
+
+def ptxas_of(log, kernel):
+    '''
+    {entry: (registers, spill store bytes, spill load bytes)} that ptxas
+    reported (``-Xptxas -v`` in the build log) for each compiled entry
+    whose mangled name holds ``kernel``.
+    '''
+    import re
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if kernel in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            out[entry] = (None, int(m.group(1)), int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and entry in out:
+            out[entry] = (int(m.group(1)),) + out[entry][1:]
+    return out
 
 
 def library_restrict(v):
@@ -585,7 +610,7 @@ def check_kernels():
         del planes3, packed
         torch.cuda.empty_cache()
 
-    # K2 and K6 (both variants) at every level size of the 2048^2
+    # K2, K6 (both variants) and K9 at every level size of the 2048^2
     # hierarchy (the smoothed levels), R=16 and R=1 (2048^2 x 16 is the
     # main row)
     for n in (2048, 1024, 512, 256, 128, 64):
@@ -612,6 +637,13 @@ def check_kernels():
                    (lambda: ck.jacobi_sweep2(planes, D, b),
                     lambda: stencil._jacobi2z_ref(planes, D, b)),
                    key='jacobi_sweep2_zero %d^2 R=%d' % (n, R),
+                   shape=(n, n, R))
+            record('presmooth_residual', desc,
+                   ck.presmooth_residual(planes, D, mask, b),
+                   stencil._ps2r_ref(planes, D, mask, b), True,
+                   (lambda: ck.presmooth_residual(planes, D, mask, b),
+                    lambda: stencil._ps2r_ref(planes, D, mask, b)),
+                   key='presmooth_residual %d^2 R=%d' % (n, R),
                    shape=(n, n, R))
             del b, u
         del planes, D, mask
@@ -1309,6 +1341,10 @@ def main():
         for line in ck.build_info[1].splitlines():
             if 'Used' in line or 'spill' in line or 'Compiling' in line:
                 say('  ptxas: ' + line.split('ptxas info    : ')[-1])
+    for regs, st, ld in ptxas_of(so.with_suffix('.log').read_text(),
+                                 'zt_presmooth_residual').values():
+        say('K9 ptxas: %s registers, spill %d B stores / %d B loads'
+            % (regs, st, ld))
 
     # phase 3
     say('phase 3: kernels against their torch twins (complex64, card)')

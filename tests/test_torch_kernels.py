@@ -1,11 +1,11 @@
 '''
 The CUDA kernels K1-K9 against their torch twins, on the card,
 complex64, at small and odd shapes (K3 at depths 1-1025 with extra
-pass-through levels; K2, K6 and K8 with RHS groups, K6 and K8 also with
-groups the wrappers do not pick; R in {1, 3, 17}) (chip_smoke.py runs the
-same checks at the main path's shapes). Marked ``cuda``: without an NVIDIA
-GPU and nvcc they skip. On a machine with one (where jax is not installed, add
-``--noconftest``):
+pass-through levels; K2, K6, K8 and K9 with RHS groups, K6, K8 and K9
+also with groups the wrappers do not pick; R in {1, 3, 17})
+(chip_smoke.py runs the same checks at the main path's shapes). Marked
+``cuda``: without an NVIDIA GPU and nvcc they skip. On a machine with one
+(where jax is not installed, add ``--noconftest``):
 
     python -m pytest tests/test_torch_kernels.py -q
 
@@ -192,6 +192,24 @@ def test_k6_groups_and_odd_sizes(dev, nz, nx, R):
         assert _close(ck._jacobi_sweep2_launch(planes, D, b, u, g), refs[0])
         assert _close(ck._jacobi_sweep2_launch(planes, D, b, None, g),
                       refs[1])
+
+
+@pytest.mark.parametrize('R', [1, 3, 17])
+@pytest.mark.parametrize('nz,nx', ODD_EVEN)
+def test_k9_groups_and_odd_sizes(dev, nz, nx, R):
+    '''
+    K9 at odd and even sizes, one grid cell to ~200^2, with R not a
+    multiple of the RHS group (17 RHS at ~200^2 in groups of 3), against
+    its twin (u2 and the masked residual), with its own RHS group and with
+    1, 2 and 4 RHS a block.
+    '''
+    planes, D, mask, b, _, _ = _operands(dev, nz, nx, R)
+    u_r, r_r = stencil._ps2r_ref(planes, D, mask, b)
+    u_k, r_k = ck.presmooth_residual(planes, D, mask, b)
+    assert _close(u_k, u_r) and _close(r_k, r_r)
+    for g in sorted({ck._k9_group(nz, nx, R), min(R, 4), 2, 1}):
+        u_k, r_k = ck._presmooth_residual_launch(planes, D, mask, b, g)
+        assert _close(u_k, u_r) and _close(r_k, r_r)
 
 
 @pytest.mark.parametrize('R', [1, 3, 17])

@@ -252,6 +252,23 @@ def test_k8_group(n):
                                       128: 3}.get(n, 1)
 
 
+@pytest.mark.parametrize('n', LEVEL_SIZES)
+def test_k9_group(n):
+    '''
+    K9 runs on K6's 16 x 32 tile, so its RHS group is K6's (the rule
+    test_k6_group holds) at every level size from 2048^2 down to 1^2,
+    every RHS covered once; a batch of a million RHS stays within the
+    group limit.
+    '''
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    for R in (1, 3, 16, 17):
+        g = ck._k9_group(n, n, R)
+        assert g == ck._k6_group(n, n, R) and _groups_cover_once(R, g)
+    assert ck._k9_group(n, n, 16) == {2048: 16, 1024: 16, 512: 16,
+                                      256: 6}.get(n, 1)
+    ck._check_groups(10 ** 6, ck._k9_group(n, n, 10 ** 6))
+
+
 def test_rhs_group_limit_raises():
     'A batch needing more than MAX_GROUPS groups is refused before launch.'
     from zephyr_tpu_torch.ops import cuda_kernels as ck

@@ -59,7 +59,7 @@ def groups(group_fn, nz, nx, R):
 
 #: bytes an extra RHS must move per grid point
 RHS_BYTES = {'jacobi_sweep2': 24, 'jacobi_sweep2_zero': 16,
-             'apply_block_stencil': 32}
+             'apply_block_stencil': 32, 'presmooth_residual': 24}
 
 
 def _err(out, ref):

@@ -154,7 +154,7 @@ def _load():
             'zt_prolong_add_smooth': [P, P, P, P, P, P, P, I, I, I, P],
             'zt_jacobi_sweep': [P, P, P, P, P, I, I, I, P],
             'zt_jacobi_sweep2': [P, P, P, P, P, I, I, I, I, P],
-            'zt_presmooth_residual': [P, P, P, P, P, P, I, I, I, P],
+            'zt_presmooth_residual': [P, P, P, P, P, P, I, I, I, I, P],
             'zt_restrict': [P, P, I, I, I, P],
             'zt_prolong': [P, P, I, I, I, I, I, P],
             'zt_apply_block_stencil': [P, P, P, I, I, I, I, P],
@@ -471,13 +471,31 @@ def presmooth_residual(planes, dinv_eff, mask, b):
     _check('planes', planes, torch.complex64, (9, nz, nx), dev)
     _check('dinv_eff', dinv_eff, torch.complex64, (nz, nx), dev)
     _check('mask', mask, torch.float32, (nz, nx), dev)
+    g = _k9_group(nz, nx, R)
+    _check_groups(R, g)
+    return _presmooth_residual_launch(planes, dinv_eff, mask, b, g)
+
+
+def _k9_group(nz, nx, R):
+    '''
+    K9's RHS group: it runs on K6's 16 x 32 tile, two blocks an SM
+    (``_k6_group``).
+    '''
+
+    return _k6_group(nz, nx, R)
+
+
+def _presmooth_residual_launch(planes, dinv_eff, mask, b, g):
+    'K9 with g RHS a block, on checked operands.'
+
+    R, nz, nx = b.shape
     lib = _load()
     u = torch.empty_like(b)
     res = torch.empty_like(b)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(b.device):
         _launch('presmooth_residual', lib.zt_presmooth_residual,
                 planes.data_ptr(), dinv_eff.data_ptr(), mask.data_ptr(),
-                b.data_ptr(), u.data_ptr(), res.data_ptr(), R, nz, nx)
+                b.data_ptr(), u.data_ptr(), res.data_ptr(), R, nz, nx, g)
     return u, res
 
 
