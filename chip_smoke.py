@@ -36,10 +36,10 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    homogeneous and the 4-layer model with the production config, and on
    the homogeneous model with the default config (5b) (relres <= 1e-5),
    plus the homogeneous oracle errors;
-6. (after 7-9) the launch counts of every kernel: over phases 4-7
-   (K1-K5, K7 must be > 0), over phase 8 (K7, K8) and over phase 9 (K1-K4,
-   K6 both variants, K7, K9), each path driven with the counts set to 0
-   just before it;
+6. (after 7-10) the launch counts of every kernel: over phases 4-7
+   (K1-K5, K7 must be > 0), over phase 8 (K7, K8), over phase 9 (K1-K4,
+   K6 both variants, K7, K9) and over phase 10 (K1-K4, K7), each path
+   driven with the counts set to 0 just before it;
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
@@ -73,7 +73,22 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    restriction of the same downstroke; (d) the bench's
    ``gradient_marmousi`` row at 512^2 (finite, non-zero); (e) phase 7c's
    autograd-vs-chunked agreement on the 512^2 Marmousi model (2 panels,
-   the transposed panel family in the backward).
+   the transposed panel family in the backward);
+10. the 2D inverse-problem layer (zephyr_tpu_torch.middleware) on the
+   bench's Marmousi model, the production config, phase 7a's 16 sources
+   and 64 receivers: (a) at 2048^2 (8 x-panels), one frequency 1500/16,
+   Helm2DProblem + Helm2DSurvey: survey.dpred() through the MultiFreq
+   distributor, the differentiable forward map at the same model (within
+   1e-3 of it), Jvec (forward mode: a tangent solve) and Jtvec (reverse
+   mode: an adjoint solve) and their adjoint dot test (within 1e-3),
+   each call's wall, peak GB, and each of its Krylov runs' iterations
+   and seconds printed; (b) at 512^2,
+   two frequencies, misfit_and_gradient at a smoothed start model against
+   data made at the true model, finite, non-zero and within 1e-3 of
+   Jtvec(dpred(m0) - dobs); (c) at 512^2 the dot test (within 1e-3) of
+   Helm2DViscoProblem (Q 50, freqBase) and of
+   Helm2DViscoMultiGridProblem on a Helm2DMultiGridSurvey (MiniZephyrHD,
+   two frequencies on two grids).
 
 After phase 6 it prints the K6 milliseconds of one nu 3/3 iteration (9b)
 and the K8 milliseconds of one `eurus` GMRES iteration (8b): the launches
@@ -1300,6 +1315,239 @@ def marmousi_nu33(n, nsrc, card, max_iters):
     return out
 
 
+# --- phase 10 ------------------------------------------------------------
+
+def middleware_geometry(n, nsrc=16, nrec=64):
+    '''
+    Phase 7a's acquisition at n^2 as a survey geometry: nsrc sources drawn
+    with seed 2, nrec receivers on row n/8, fixed spread.
+    '''
+    src = np.random.default_rng(2).integers(
+        n // 8, 7 * n // 8, size=(nsrc, 2)).astype(np.float64)
+    rec = np.stack([np.linspace(n // 8, 7 * n // 8, nrec),
+                    np.full(nrec, float(n // 8))], axis=1)
+    return {'src': src, 'rec': rec, 'mode': 'fixed'}
+
+
+def middleware_pair(problem_cls, survey_cls, n, c, freqs, **kw):
+    '''
+    A paired problem and survey on the card: MiniZephyr at dx = dz = 1,
+    the production solver options, phase 7a's geometry.
+    '''
+    from zephyr_tpu_torch.backend import MiniZephyr
+    sc = {'Disc': MiniZephyr, 'nx': n, 'nz': n, 'dx': 1., 'dz': 1.,
+          'c': c, 'rho': 1., 'freqs': list(freqs), 'nPML': 10,
+          'geom': middleware_geometry(n), 'solverOpts': dict(PRODUCTION),
+          'device': DEV}
+    sc.update(kw)
+    problem, survey = problem_cls(sc), survey_cls(sc)
+    problem.pair(survey)
+    return problem, survey
+
+
+def smooth_field(n, seed, width=16.0):
+    '''
+    A smooth seeded (n, n) field of unit rms: white noise low-passed to
+    wavelengths above ``width`` cells.
+    '''
+    w = np.random.default_rng(seed).standard_normal((n, n))
+    k = np.sqrt(np.fft.fftfreq(n)[:, None] ** 2
+                + np.fft.fftfreq(n)[None, :] ** 2)
+    f = np.real(np.fft.ifft2(np.fft.fft2(w) * (k <= 1.0 / width)))
+    return f / max(f.std(), 1e-30)
+
+
+class krylov_runs:
+    '''
+    Record, in call order, the outer iterations (the worst over its batch)
+    and the wall of every Krylov run inside the block: the solver's
+    ``_krylov_solve`` is replaced for the block's duration by a function
+    that synchronises the card, calls through, synchronises again and
+    records.
+    '''
+
+    def __enter__(self):
+        import torch
+        from zephyr_tpu_torch.solver import helmholtz
+        self.saved = run = helmholtz._krylov_solve
+        self.iters, self.seconds = [], []
+
+        def _krylov_solve(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            self.iters.append(int(res.iters.max()))
+            return res
+        helmholtz._krylov_solve = _krylov_solve
+        return self
+
+    def __exit__(self, *exc):
+        from zephyr_tpu_torch.solver import helmholtz
+        helmholtz._krylov_solve = self.saved
+
+
+def timed(label, fn, out):
+    '''
+    Run fn on the card with the peak memory reset before it; record its
+    wall, peak GB, and the iterations and seconds of each Krylov run it
+    made (forward, then tangent or adjoint) in ``out[label]``, and return
+    its result.
+    '''
+    import torch
+    reset_peak()
+    t0 = time.perf_counter()
+    with krylov_runs() as kr:
+        res = fn()
+        torch.cuda.synchronize()
+    out[label] = {'wall_s': time.perf_counter() - t0, 'peak_gb': peak_gb(),
+                  'iters': kr.iters, 'solve_s': kr.seconds}
+    return res
+
+
+def dot_test(problem, survey, n, seed, out, label):
+    '''
+    Jvec(v) and Jtvec(w) for a smooth seeded v and seeded complex w, timed
+    into ``out``; returns |Re<w, Jv> - <J^T w, v>| / |Re<w, Jv>|.
+    '''
+    v = 10.0 * smooth_field(n, seed).ravel()
+    rng = np.random.default_rng(seed + 1)
+    w = rng.standard_normal(survey.nD) + 1j * rng.standard_normal(survey.nD)
+    jv = timed(label + ' Jvec', lambda: problem.Jvec(v=v), out)
+    jtw = timed(label + ' Jtvec', lambda: problem.Jtvec(v=w), out)
+    if not (np.isfinite(jv).all() and np.isfinite(jtw).all()):
+        fail('%s: non-finite Jvec or Jtvec' % label)
+    lhs = float(np.real(np.vdot(w, jv)))
+    rhs = float(np.dot(jtw.astype(np.float64), v))
+    return abs(lhs - rhs) / abs(lhs)
+
+
+def middleware_marmousi(n, card, limit=1e-3):
+    '''
+    Phase 10a: the 2D inverse-problem layer on the bench's Marmousi model
+    at n^2 (Helm2DProblem + Helm2DSurvey, one frequency 1500/16, the
+    production config, whose auto rule gives 8 x-panels at 2048^2):
+    survey.dpred() through the MultiFreq distributor, the differentiable
+    forward map at the same model (must agree within ``limit``), Jvec,
+    Jtvec and their adjoint dot test (within ``limit``).
+    '''
+    import torch
+    from zephyr_tpu_torch.middleware import Helm2DProblem, Helm2DSurvey
+    c = marmousi_c(n).astype(np.float64)
+    problem, survey = middleware_pair(Helm2DProblem, Helm2DSurvey, n, c,
+                                      [1500.0 / 16])
+    out = {'n': n, 'nsrc': survey.nsrc, 'nrec': survey.nrec,
+           'nfreq': survey.nfreq,
+           'panels': problem.solverConfig.strat_panels}
+    walls = {}
+    d = timed('dpred', survey.dpred, walls)
+
+    def forward_map():
+        with torch.no_grad():
+            return problem._dpred_fn()(problem._baseTensor())
+    d_fn = timed('forward map', forward_map, walls).cpu().numpy().ravel()
+    if not (d.shape == (survey.nD,) and np.isfinite(d).all()
+            and np.abs(d).max() > 0):
+        fail('middleware dpred %d^2: shape %s, finite %s'
+             % (n, d.shape, np.isfinite(d).all()))
+    out['forward_rel_diff'] = float(np.linalg.norm(d_fn - d)
+                                    / np.linalg.norm(d))
+    out['dot_test'] = dot_test(problem, survey, n, 7, walls, 'marmousi')
+    out['walls'] = walls
+    say('middleware %d^2 marmousi (%d panels), %d src x %d rec x %d freq: '
+        'forward map vs dpred %.3e, dot test %.3e (limits %.0e); %s '
+        '(card %s)' % (n, out['panels'], survey.nsrc, survey.nrec,
+                       survey.nfreq, out['forward_rel_diff'],
+                       out['dot_test'], limit, json.dumps(walls), card))
+    if not out['forward_rel_diff'] <= limit:
+        fail('middleware: the forward map and dpred differ by %.3e'
+             % out['forward_rel_diff'])
+    if not out['dot_test'] <= limit:
+        fail('middleware: dot test %.3e > %.0e' % (out['dot_test'], limit))
+    return out
+
+
+def middleware_gradient(n, card, limit=1e-3):
+    '''
+    Phase 10b: misfit_and_gradient at a smoothed start model against
+    data dpred made at the true Marmousi model (n^2, two frequencies),
+    held against Jtvec of the residual dpred(m0) - dobs (the same VJP).
+    '''
+    from scipy.ndimage import gaussian_filter
+    from zephyr_tpu_torch.middleware import Helm2DProblem, Helm2DSurvey
+    c = marmousi_c(n).astype(np.float64)
+    freqs = [0.75 * 1500.0 / 16, 1500.0 / 16]
+    problem, survey = middleware_pair(Helm2DProblem, Helm2DSurvey, n, c,
+                                      freqs)
+    walls = {}
+    dobs = timed('dobs', survey.dpred, walls)
+    m0 = gaussian_filter(c, 8.0)
+    f, g = timed('misfit_and_gradient',
+                 lambda: problem.misfit_and_gradient(m0, dobs), walls)
+    r = timed('dpred(m0)', lambda: survey.dpred(m0), walls) - dobs
+    jtr = timed('Jtvec(residual)', lambda: problem.Jtvec(m0, r), walls)
+    gnorm = float(np.linalg.norm(g))
+    diff = float(np.linalg.norm(g - jtr) / np.linalg.norm(jtr))
+    out = {'n': n, 'nfreq': len(freqs), 'misfit': f, 'grad_norm': gnorm,
+           'rel_diff_vs_jtvec': diff, 'walls': walls,
+           'panels': problem.solverConfig.strat_panels}
+    say('middleware %d^2 marmousi misfit_and_gradient (%d freq, %d panels): '
+        'misfit %.6e |grad| %.6e, against Jtvec(dpred(m0) - dobs) %.3e '
+        '(limit %.0e); %s (card %s)' % (n, len(freqs), out['panels'], f,
+                                        gnorm, diff, limit,
+                                        json.dumps(walls), card))
+    if not (np.isfinite(f) and np.isfinite(g).all() and gnorm > 0):
+        fail('middleware gradient: misfit %r, finite %s, |grad| %r'
+             % (f, np.isfinite(g).all(), gnorm))
+    if not diff <= limit:
+        fail('middleware gradient differs from Jtvec by %.3e' % diff)
+    return out
+
+
+def middleware_visco(n, card, limit=1e-3):
+    '''
+    Phase 10c: the adjoint dot test at n^2 on the Marmousi model for
+    Helm2DViscoProblem (Q 50, freqBase half the frequency: the dispersed
+    velocity) and for Helm2DViscoMultiGridProblem with
+    Helm2DMultiGridSurvey (MiniZephyrHD, two frequencies on two grids:
+    n^2 and (n/2)^2 by targetGPW 16).
+    '''
+    from zephyr_tpu_torch.backend import MiniZephyrHD
+    from zephyr_tpu_torch.middleware import (
+        Helm2DViscoProblem, Helm2DViscoMultiGridProblem, Helm2DSurvey,
+        Helm2DMultiGridSurvey)
+    c = marmousi_c(n).astype(np.float64)
+    f1 = 1500.0 / 16
+    out = {}
+    for label, cls, scls, freqs, kw in (
+            ('visco', Helm2DViscoProblem, Helm2DSurvey, [f1],
+             {'Q': 50., 'freqBase': f1 / 2}),
+            ('visco multigrid', Helm2DViscoMultiGridProblem,
+             Helm2DMultiGridSurvey, [f1 / 2, f1],
+             {'Q': 50., 'freqBase': f1 / 4, 'Disc': MiniZephyrHD,
+              'cMin': 1500., 'targetGPW': 16.})):
+        problem, survey = middleware_pair(cls, scls, n, c, freqs, **kw)
+        walls = {}
+        err = dot_test(problem, survey, n, 11, walls, label)
+        row = {'n': n, 'nfreq': len(freqs), 'dot_test': err,
+               'walls': walls}
+        if label == 'visco multigrid':
+            row['grids'] = [
+                int(survey.scScales[survey.buildSC(i)]['nz'])
+                for i in range(len(freqs))]
+            if len(set(row['grids'])) != 2:
+                fail('visco multigrid: grids %s, not two' % row['grids'])
+        out[label] = row
+        say('middleware %d^2 %s, %d freq%s: dot test %.3e (limit %.0e); %s '
+            '(card %s)' % (n, label, len(freqs),
+                           ' on grids %s' % row['grids'] if 'grids' in row
+                           else '', err, limit, json.dumps(walls), card))
+        if not err <= limit:
+            fail('%s: dot test %.3e > %.0e' % (label, err, limit))
+    return out
+
+
 #: the kernels each main path must launch (phase 6)
 SCALAR_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                'prolong_add_smooth', 'jacobi_sweep', 'restrict', 'prolong')
@@ -1308,6 +1556,8 @@ MARMOUSI_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                  'prolong_add_smooth', 'jacobi_sweep', 'jacobi_sweep2',
                  'jacobi_sweep2_zero', 'restrict', 'prolong',
                  'presmooth_residual')
+MIDDLEWARE_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
+                   'prolong_add_smooth', 'restrict', 'prolong')
 
 
 def main():
@@ -1389,10 +1639,17 @@ def main():
                                            medium='marmousi')
     torch.cuda.synchronize()
     launches['marmousi'] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    mw = {'marmousi': middleware_marmousi(2048, card),
+          'gradient': middleware_gradient(512, card),
+          'visco': middleware_visco(512, card)}
+    torch.cuda.synchronize()
+    launches['middleware'] = dict(ck.LAUNCHES)
 
     # phase 6
     for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH),
-                        ('marmousi', MARMOUSI_PATH)):
+                        ('marmousi', MARMOUSI_PATH),
+                        ('middleware', MIDDLEWARE_PATH)):
         say('launches over the %s path: %s'
             % (path, json.dumps(launches[path])))
         for name in names:
@@ -1415,6 +1672,7 @@ def main():
     say(json.dumps({'gradients': grads, 'card': card}))
     say(json.dumps({'tti': tti, 'card': card}))
     say(json.dumps({'marmousi': marm, 'card': card}))
+    say(json.dumps({'middleware': mw, 'card': card}))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():

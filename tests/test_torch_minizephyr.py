@@ -166,7 +166,9 @@ def test_analytical_oracle_parity(extra):
 def test_import_loads_no_jax():
     code = ('import sys; import zephyr_tpu_torch, zephyr_tpu_torch.backend, '
             'zephyr_tpu_torch.solver, zephyr_tpu_torch.convert, '
-            'zephyr_tpu_torch.parallel, zephyr_tpu_torch.ops.cuda_kernels; '
+            'zephyr_tpu_torch.parallel, zephyr_tpu_torch.ops.cuda_kernels, '
+            'zephyr_tpu_torch.middleware, '
+            'zephyr_tpu_torch.backend.distributors; '
             'assert "jax" not in sys.modules; '
             'assert "zephyr_tpu" not in sys.modules; print("ok")')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -12,8 +12,11 @@ the same path:
                               hybrid Helmholtz solve, differentiable
 - zephyr_tpu_torch.backend  — forward modelling (MiniZephyr, Eurus,
                               sources, the analytical oracle, grid
-                              interpolation)
+                              interpolation, the MultiFreq distributors)
 - zephyr_tpu_torch.parallel — the chunked adjoint-state FWI gradient
+- zephyr_tpu_torch.middleware — the 2D inverse problem: surveys,
+                              problems with exact Jvec/Jtvec, the
+                              host-side I/O and inversion helpers
 - zephyr_tpu_torch.convert  — the JAX package's prepared state into the
                               port's
 - zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K9 (sm_90a), one

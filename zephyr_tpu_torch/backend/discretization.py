@@ -16,16 +16,17 @@ the solve; it defaults to 'cuda' and raises without a card (pass
 complex128 on the CPU) sets their precision.
 '''
 
+import contextlib
+
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from ..solver.helmholtz import (prepare_operator, resolve_panels,
                                 resolve_solver_config, solve_batched)
-from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.attrmap import BaseSCCache
+from ..core.device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from .base import BaseModelDependent
-
-_DTYPES = {'complex64': torch.complex64, 'complex128': torch.complex128}
 
 
 class BaseDiscretization(BaseModelDependent):
@@ -57,14 +58,7 @@ class BaseDiscretization(BaseModelDependent):
     def dtype(self):
         'complex128 on the CPU and complex64 on CUDA unless configured.'
         dt = getattr(self, '_dtype', None)
-        if dt is None:
-            return (torch.complex64 if self.device.type == 'cuda'
-                    else torch.complex128)
-        if isinstance(dt, str):
-            dt = _DTYPES[dt]
-        if dt not in (torch.complex64, torch.complex128):
-            raise ValueError('dtype must be complex64 or complex128')
-        return dt
+        return resolve_dtype(dt, self.device if dt is None else None)
 
     @property
     def tau(self):
@@ -171,21 +165,38 @@ class BaseDiscretization(BaseModelDependent):
     def factors(self):
         del self.Ainv
 
+    def _dispatch_rhs(self, rhs):
+        '''
+        Solve for rhs (n, nrhs) complex with the premul applied: returns
+        the solution as a tensor on this instance's device,
+        (nrhs, nblock, nz, nx), and nrhs. The parallel distributor runs
+        this for sibling subproblems on their own cards.
+        '''
+
+        nrhs = rhs.shape[1]
+        b = np.asarray(self.premul * rhs)
+        b = b.T.reshape((nrhs, self.nblock, self.nz, self.nx))
+        dev = self.device
+        with (torch.cuda.device(dev) if dev.type == 'cuda'
+              else contextlib.nullcontext()):
+            bt = torch.as_tensor(np.ascontiguousarray(b),
+                                 device=dev).to(self.dtype)
+            return solve_batched(self.Ainv, bt, self.solverConfig), nrhs
+
+    def _gather_rhs(self, x, nrhs):
+        'A dispatched solution on the host as (n, nrhs), FT-conjugated.'
+
+        x = x.cpu().numpy().astype(np.complex128)
+        x = x.reshape((nrhs, self.nblock * self.nrow)).T
+        return x.conjugate()
+
     def _solve_rhs(self, rhs):
         '''
         Core solve: rhs (n, nrhs) complex -> wavefields (n, nrhs) with the
         reference's premul and conjugation applied.
         '''
 
-        nrhs = rhs.shape[1]
-        b = np.asarray(self.premul * rhs)
-        b = b.T.reshape((nrhs, self.nblock, self.nz, self.nx))
-        bt = torch.as_tensor(np.ascontiguousarray(b),
-                             device=self.device).to(self.dtype)
-        x = solve_batched(self.Ainv, bt, self.solverConfig)
-        x = x.cpu().numpy().astype(np.complex128)
-        x = x.reshape((nrhs, self.nblock * self.nrow)).T
-        return x.conjugate()
+        return self._gather_rhs(*self._dispatch_rhs(rhs))
 
     def __mul__(self, rhs):
         'Action of multiplying the inverted system by a right-hand side.'
@@ -201,3 +212,73 @@ class BaseDiscretization(BaseModelDependent):
 
     def __call__(self, value):
         return self * value
+
+
+class DiscretizationWrapper(BaseSCCache):
+    '''
+    Base class for objects that wrap around discretizations in order to
+    model composite systems (multi-frequency, multi-grid), the port of
+    ``zephyr_tpu.backend.discretization.DiscretizationWrapper``:
+    subproblem configs are the stored systemConfig with the wrapper's
+    ``maskKeys`` removed, overlaid with each ``spUpdates`` dict (reference
+    discretization.py:109-169).
+    '''
+
+    initMap = {
+    #   Argument        Required    Rename as ...   Store as type
+        'Disc':         (True,      None,           None),
+        'scaleTerm':    (False,     '_scaleTerm',   np.complex128),
+    }
+
+    maskKeys = {'scaleTerm'}
+
+    cacheItems = ['_subProblems']
+
+    @property
+    def scaleTerm(self):
+        'A scaling term to apply to the output wavefield.'
+        return getattr(self, '_scaleTerm', 1.)
+
+    @property
+    def spUpdates(self):
+        raise NotImplementedError
+
+    @property
+    def _spConfigs(self):
+        '''
+        Subproblem configs: the stored systemConfig with this wrapper's
+        aggregated maskKeys removed (so a nested wrapper's children do not
+        re-receive its own keys), overlaid with each spUpdate.
+        '''
+
+        base = self.maskedConfig
+
+        def overlay(spu):
+            config = dict(base)
+            config.update(spu)
+            return config
+
+        return (overlay(spu) for spu in self.spUpdates)
+
+    @property
+    def subProblems(self):
+        'Instantiated subproblem discretizations (cached).'
+
+        if getattr(self, '_subProblems', None) is None:
+            self._subProblems = [self.Disc(config)
+                                 for config in self._spConfigs]
+        return self._subProblems
+
+    @property
+    def factors(self):
+        return getattr(self, '_subProblems', None) is not None and \
+            any(s.factors for s in self._subProblems)
+
+    @factors.deleter
+    def factors(self):
+        if getattr(self, '_subProblems', None) is not None:
+            for s in self._subProblems:
+                del s.factors
+
+    def __mul__(self, rhs):
+        raise NotImplementedError

@@ -27,6 +27,13 @@ class BaseSource(BaseModelDependent):
     'Trivial base class for sources'
 
 
+class FakeSource(BaseSource):
+    'Source that does nothing (for use with analytical systems)'
+
+    def __call__(self, loc):
+        return loc
+
+
 class SimpleSource(BaseSource):
     '''
     Nearest-gridpoint delta source. Calling with an (nsrc, 2) array of
@@ -249,6 +256,15 @@ class SparseKaiserSource(SimpleSource):
         q = sp.coo_matrix((vals, (rows, cols)), shape=(N, M),
                           dtype=np.complex128)
         return q.T
+
+
+class KaiserSource(SparseKaiserSource):
+    'Dense-array convenience wrapper over SparseKaiserSource.'
+
+    def __call__(self, sLocs):
+
+        q = super().__call__(sLocs)
+        return q.toarray()
 
 
 class AnisotropicKaiserSource(SparseKaiserSource, BaseAnisotropic):

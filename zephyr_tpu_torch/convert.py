@@ -7,14 +7,16 @@ StratPCR). After ``jax.tree_util.tree_map(np.asarray, op)`` every leaf is
 a numpy array; ``operator_from_numpy`` rebuilds the port's
 HelmholtzOperator from such a tree by attribute name, so the two packages
 can be fed the same prepared state and a mismatch is isolated to either
-the preparation or the solve. This module reads the tree's attributes
-only and imports neither jax nor the JAX package.
+the preparation or the solve. ``system_config`` carries a JAX-side
+systemConfig (the model as numpy arrays, the classes by name) over to the
+port's classes. This module reads attributes and class names only and
+imports neither jax nor the JAX package.
 '''
 
 import numpy as np
 import torch
 
-from .core.device import DEFAULT_DEVICE, resolve_device
+from .core.device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from .solver.helmholtz import HelmholtzOperator
 from .solver.multigrid import MGHierarchy, MGLevel
 from .solver.stratified import StratPCR, StratPCRBlock, pack_pcr_factors
@@ -118,3 +120,44 @@ def operator_from_numpy(tree, device=DEFAULT_DEVICE):
     return HelmholtzOperator(tensor_from_numpy(tree.planes, device), hier,
                              strat, _opt(tree.cplanes, device), hierT,
                              _opt(getattr(tree, 'planesT', None), device))
+
+
+def system_config(sc, device=DEFAULT_DEVICE, dtype=None):
+    '''
+    A copy of a JAX-side systemConfig for the port: its ``Disc``,
+    ``SystemWrapper`` and ``remDists`` entries, and the geometry's
+    ``GeneratorClass``, become the port's classes of the same
+    ``__name__`` (compared as strings: the JAX package is never
+    imported), and ``device`` (the card unless 'cpu' is asked for) and
+    ``dtype`` (default complex64 on the card, complex128 on the CPU) are
+    added. The model stays the numpy arrays it was. A class the port
+    does not carry raises NotImplementedError.
+    '''
+
+    from . import backend
+    device = resolve_device(device)
+
+    def swap(cls):
+        if not isinstance(cls, type):
+            return cls
+        port = getattr(backend, cls.__name__, None)
+        if not isinstance(port, type):
+            hint = (' (2.5D: ROADMAP Queue 1, item 13)'
+                    if '25D' in cls.__name__ else '')
+            raise NotImplementedError('system_config: %s is not ported to '
+                                      'zephyr_tpu_torch%s'
+                                      % (cls.__name__, hint))
+        return port
+
+    out = dict(sc)
+    for key in ('Disc', 'SystemWrapper'):
+        if key in out:
+            out[key] = swap(out[key])
+    if out.get('remDists'):
+        out['remDists'] = [swap(c) for c in out['remDists']]
+    geom = out.get('geom')
+    if isinstance(geom, dict) and 'GeneratorClass' in geom:
+        out['geom'] = dict(geom, GeneratorClass=swap(geom['GeneratorClass']))
+    out['device'] = str(device)
+    out['dtype'] = resolve_dtype(dtype, device)
+    return out

@@ -27,3 +27,23 @@ def resolve_device(device=DEFAULT_DEVICE):
             "card by default. Pass device='cpu' (the 'device' config key of "
             "a discretization) to run on the CPU.")
     return dev
+
+
+_DTYPES = {'complex64': torch.complex64, 'complex128': torch.complex128}
+
+
+def resolve_dtype(dtype, device):
+    '''
+    The complex dtype of a solve: ``dtype`` (a torch dtype or its name)
+    when given (``device`` is then not needed), else complex64 on CUDA
+    and complex128 on the CPU.
+    '''
+
+    if dtype is None:
+        return (torch.complex64 if torch.device(device).type == 'cuda'
+                else torch.complex128)
+    if isinstance(dtype, str):
+        dtype = _DTYPES[dtype]
+    if dtype not in (torch.complex64, torch.complex128):
+        raise ValueError('dtype must be complex64 or complex128')
+    return dtype

@@ -62,6 +62,8 @@ LAUNCHES = {'apply_stencil': 0, 'presmooth_restrict': 0, 'pcr_sweep': 0,
 
 _lib = None
 _lock = threading.Lock()
+#: guards LAUNCHES: the parallel distributor launches from several threads
+_count_lock = threading.Lock()
 #: (seconds, compiler log) of the build this process made, if any
 build_info = None
 
@@ -200,7 +202,8 @@ def _launch(name, fn, *args):
     if err != 0:
         raise RuntimeError('zephyr_tpu_torch: %s launch failed with CUDA '
                            'error %d' % (name, err))
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def apply_stencil(planes, u):

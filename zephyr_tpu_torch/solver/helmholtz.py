@@ -37,10 +37,11 @@ residual, K7 for the transfers, plain-torch block PCR for the lines).
 
 ``solve``/``solve_batched`` are differentiable (``torch.autograd``) with
 respect to the planes and the right-hand side, as
-``lax.custom_linear_solve`` makes them in the JAX package: the backward
-runs one transpose solve with the transpose preconditioner (the fused
-cycle falls back to 'mult' there, which runs K7). The backward of a
-block (TTI) solve is not ported yet and raises.
+``lax.custom_linear_solve`` makes them in the JAX package: forward mode
+(``torch.autograd.forward_ad``) runs one more solve with the same
+operator; the backward runs one transpose solve with the transpose
+preconditioner (the fused cycle falls back to 'mult' there, which runs
+K7). The backward of a block (TTI) solve is not ported yet and raises.
 
 Configurations whose path needs a part that is not ported yet raise
 NotImplementedError naming it, on every device.
@@ -441,12 +442,20 @@ def _krylov_solve(matvec, b, M, config, block_size):
 class _LinearSolve(torch.autograd.Function):
     '''
     x = A(planes)^{-1} b by the preconditioned Krylov method of the
-    config, with the implicit adjoint of ``lax.custom_linear_solve``.
-    Torch hands the backward g = dL/d conj(x); the cotangent of b is
-    w = A^{-H} g = conj(A^{-T} conj(g)), one transpose solve with the
-    transpose preconditioner, and that of the planes is
+    config, with the implicit derivatives of ``lax.custom_linear_solve``.
+
+    Forward mode (``jvp``): dx = A^{-1} (db - dA x), one more solve with
+    the same operator and forward preconditioner; dA x is the stencil
+    apply of the tangent planes (K1, or K8 for a block operator).
+
+    Reverse mode (``backward``): torch hands g = dL/d conj(x); the
+    cotangent of b is w = A^{-H} g = conj(A^{-T} conj(g)), one transpose
+    solve with the transpose preconditioner, and that of the planes is
     -sum_r w_r[i] conj(x_r[i + s_k]). Block (TTI) operators have no
     backward yet.
+
+    The solve reads ``op`` (prepared from detached planes); ``planes`` is
+    the differentiable input that carries the derivatives.
     '''
 
     @staticmethod
@@ -454,7 +463,18 @@ class _LinearSolve(torch.autograd.Function):
         x = solve_info(op, b, config)[0]
         ctx.op, ctx.config = op, config
         ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
         return x
+
+    @staticmethod
+    def jvp(ctx, dplanes, db, _op, _config):
+        x, = ctx.saved_tensors
+        op, config = ctx.op, ctx.config
+        rhs = torch.zeros_like(x) if db is None else db.resolve_conj()
+        if dplanes is not None:
+            dp = dplanes.resolve_conj().contiguous()
+            rhs = rhs - apply_block_stencil_fast(dp, x)
+        return solve_info(op, rhs.contiguous(), config)[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -476,15 +496,19 @@ class _LinearSolve(torch.autograd.Function):
         return gp, gb, None, None
 
 
-def solve_batched(op, b, config=SolverConfig()):
+def solve_batched(op, b, config=SolverConfig(), planes=None):
     '''
     Solve A x = b for a batch b (R, B, nz, nx) to ``config.tol``;
-    differentiable with respect to ``op.planes`` and ``b`` for scalar
-    operators (the backward needs an operator prepared
-    ``with_transpose=True``).
+    differentiable in forward and reverse mode with respect to the planes
+    and ``b`` (reverse mode for scalar operators, and it needs an
+    operator prepared ``with_transpose=True``). The planes that carry the
+    derivatives are ``op.planes``, or ``planes`` when given: the same
+    values, for an operator prepared from detached planes (the kernels
+    read raw memory, so a forward-mode tangent must not reach them).
     '''
 
-    return _LinearSolve.apply(op.planes, b, op, config)
+    return _LinearSolve.apply(op.planes if planes is None else planes, b,
+                              op, config)
 
 
 def solve(op, b, config=SolverConfig()):
