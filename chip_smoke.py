@@ -36,10 +36,11 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    homogeneous and the 4-layer model with the production config, and on
    the homogeneous model with the default config (5b) (relres <= 1e-5),
    plus the homogeneous oracle errors;
-6. (after 7-10) the launch counts of every kernel: over phases 4-7
+6. (after 7-11) the launch counts of every kernel: over phases 4-7
    (K1-K5, K7 must be > 0), over phase 8 (K7, K8), over phase 9 (K1-K4,
-   K6 both variants, K7, K9) and over phase 10 (K1-K4, K7), each path
-   driven with the counts set to 0 just before it;
+   K6 both variants, K7, K9), over phase 10 (K1-K4, K7) and over phase
+   11 (K1-K4, K7), each path driven with the counts set to 0 just before
+   it;
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
@@ -56,7 +57,8 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    (chunk 16), warm-up then timed, with its milliseconds per GMRES
    iteration and the K8 calls whose operands had to be copied to be
    contiguous; (c) ``eurus_layered`` at 256^2 on the
-   4-layer model, timed without a warm-up of its own; (d) the
+   4-layer model, timed without a warm-up of its own and stopped after
+   20 chunks (it stalls at 3.78e-2 from the sixth: fault F4); (d) the
    line-smoother pin of tests/test_eurus.py:86-123 (128^2 layered,
    solve_info). (b)-(d) must end finite and below their
    starting residual; whether they reach 1e-5 is printed, with the chunk
@@ -89,6 +91,29 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    Helm2DViscoProblem (Q 50, freqBase) and of
    Helm2DViscoMultiGridProblem on a Helm2DMultiGridSurvey (MiniZephyrHD,
    two frequencies on two grids).
+11. multi-frequency block modelling, multiscale inversion and 2.5D, the
+   production config: (a) the bench's ``freqblock`` row (staged config
+   3, bench.py:487-582): 768^2 layered, 16 frequencies on their targetGPW
+   grids (512^2 and 768^2), 96 point sources in batches of 16 through
+   make_chunked_solver(chunk=32) (the bench's 16-iteration restarts stop
+   near 5e-4 on frequency 0 in both packages: printed for the first
+   batch), relres <= 1e-5 on every batch, warm-up then timed, solves/s
+   and the iterations per frequency; (b)
+   ``multifreq_dpred`` and the autograd gradient of ``fwi_misfit`` at
+   512^2 layered (4 frequencies, 16 sources, 64 receivers) against
+   ``fwi_misfit_grad_chunked`` (max-norm relative <= 1e-3); (c) the
+   bench's ``multiscale`` row (staged config 5, bench.py:704-770): 256^2,
+   data by ``multifreq_dpred_chunked``, 2 blocks x 3 steps of
+   ``fwi_misfit_grad_chunked``, then FrequencyContinuation over
+   Helm2DProblem (2 blocks x 2 ProjectedGradient iterations); both must
+   lower the misfit; (d) 2.5D: the reference's oracle
+   (MiniZephyr25D * q, 200x100, nky 20, error < 1e-2), then
+   Helm25DProblem on the 512^2 Marmousi model with nky 20, 16 sources and
+   64 receivers: dpred through the distributor chain, the forward map
+   (its iterations per ky, its peak beside that at nky 2), Jvec twice,
+   Jtvec, the dot test (<= 1e-3) and ``multifreq_dpred_25d`` (within
+   1e-3 of dpred). Each prints its wall, iterations, worst relres and
+   peak GB.
 
 After phase 6 it prints the K6 milliseconds of one nu 3/3 iteration (9b)
 and the K8 milliseconds of one `eurus` GMRES iteration (8b): the launches
@@ -984,6 +1009,23 @@ def solve_backward(n, nsrc, card):
     return out
 
 
+def kaiser_q_R(n, nfreq, src_pos, rec_pos):
+    """
+    Dense (nfreq, nsrc, n, n) Kaiser point sources and the (nrec, n^2)
+    Kaiser receiver matrix, complex64, on the n^2 unit grid.
+    """
+    from zephyr_tpu_torch.parallel.multifreq import _kaiser_stamps
+    nsrc, nrec = len(src_pos), len(rec_pos)
+    scols, svals = _kaiser_stamps((n, n), 1.0, 1.0, src_pos, 4)
+    rcols, rvals = _kaiser_stamps((n, n), 1.0, 1.0, rec_pos, 4,
+                                  receiver=True)
+    q = np.zeros((nsrc, n * n), np.complex64)
+    np.add.at(q, (np.arange(nsrc)[:, None], scols), svals)
+    R = np.zeros((nrec, n * n), np.complex64)
+    np.add.at(R, (np.arange(nrec)[:, None], rcols), rvals)
+    return np.repeat(q.reshape(1, nsrc, n, n), nfreq, axis=0), R
+
+
 def gradient_agreement(n, nsrc, nrec, card, limit=1e-3, medium='layered'):
     '''
     Phase 7c (and 9e on the Marmousi model): at n^2, one frequency, the
@@ -995,7 +1037,6 @@ def gradient_agreement(n, nsrc, nrec, card, limit=1e-3, medium='layered'):
     import torch
     from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
     from zephyr_tpu_torch.parallel import fwi_misfit_grad_chunked
-    from zephyr_tpu_torch.parallel.multifreq import _kaiser_stamps
     from zephyr_tpu_torch.solver.helmholtz import (
         SolverConfig, prepare_operator, shifted_velocity, solve_batched,
         resolve_panels)
@@ -1006,17 +1047,10 @@ def gradient_agreement(n, nsrc, nrec, card, limit=1e-3, medium='layered'):
     src_pos = rng.uniform(n // 8, 7 * n // 8, size=(nsrc, 2))
     rec_pos = np.stack([np.linspace(n // 8, 7 * n // 8, nrec),
                         np.full(nrec, float(n // 8))], axis=1)
-    scols, svals = _kaiser_stamps((n, n), 1.0, 1.0, src_pos, 4)
-    rcols, rvals = _kaiser_stamps((n, n), 1.0, 1.0, rec_pos, 4,
-                                  receiver=True)
-    q = np.zeros((1, nsrc, n * n), np.complex64)
-    np.add.at(q[0], (np.arange(nsrc)[:, None], scols), svals)
-    R = np.zeros((nrec, n * n), np.complex64)
-    np.add.at(R, (np.arange(nrec)[:, None], rcols), rvals)
+    q, R = kaiser_q_R(n, 1, src_pos, rec_pos)
     dobs = (0.01 * (rng.standard_normal((1, nsrc, nrec))
                     + 1j * rng.standard_normal((1, nsrc, nrec)))
             ).astype(np.complex64)
-    q = q.reshape(1, nsrc, n, n)
 
     reset_peak()
     t0 = time.perf_counter()
@@ -1114,14 +1148,15 @@ def tti_sources(n, nsrc):
     return b
 
 
-def tti_bench(n, nsrc, medium, card, warm=True):
+def tti_bench(n, nsrc, medium, card, warm=True, max_chunks=None):
     '''
     Phase 8b/8c: the bench's eurus / eurus_layered row (bench.py:425-484)
     through the port: prepare_operator + make_chunked_solver(chunk=16),
     the production config with gmres_restart=20 and mg_nu1=mg_nu2=1,
-    a warm-up solve (``warm``) then a timed one. Returns the run's
-    numbers, the chunk residual trace and the K8 launches per GMRES
-    iteration of the timed solve.
+    a warm-up solve (``warm``) then a timed one of at most ``max_chunks``
+    chunks (default: maxiter's). Returns the run's numbers, the chunk
+    residual trace and the K8 launches per GMRES iteration of the timed
+    solve.
     '''
     import torch
     from zephyr_tpu_torch.ops import cuda_kernels as ck
@@ -1146,7 +1181,8 @@ def tti_bench(n, nsrc, medium, card, warm=True):
     trace = []
     t0 = time.perf_counter()
     with level_launches() as lv:
-        x, iters, relres = solver(op, b, trace=trace)
+        x, iters, relres = solver(op, b, max_chunks=max_chunks,
+                                  trace=trace)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per_iter = {k: (ck.LAUNCHES[k] - before[k]) / max(iters, 1)
@@ -1370,7 +1406,7 @@ class krylov_runs:
         import torch
         from zephyr_tpu_torch.solver import helmholtz
         self.saved = run = helmholtz._krylov_solve
-        self.iters, self.seconds = [], []
+        self.iters, self.seconds, self.relres = [], [], []
 
         def _krylov_solve(*args, **kwargs):
             torch.cuda.synchronize()
@@ -1379,6 +1415,7 @@ class krylov_runs:
             torch.cuda.synchronize()
             self.seconds.append(time.perf_counter() - t0)
             self.iters.append(int(res.iters.max()))
+            self.relres.append(float(res.relres.max()))
             return res
         helmholtz._krylov_solve = _krylov_solve
         return self
@@ -1391,18 +1428,22 @@ class krylov_runs:
 def timed(label, fn, out):
     '''
     Run fn on the card with the peak memory reset before it; record its
-    wall, peak GB, and the iterations and seconds of each Krylov run it
-    made (forward, then tangent or adjoint) in ``out[label]``, and return
-    its result.
+    wall, peak GB (and the GB allocated when it started), and the
+    iterations, seconds and worst relres of each Krylov run it made
+    (forward, then tangent or adjoint) in ``out[label]``, and return its
+    result.
     '''
     import torch
     reset_peak()
+    base = torch.cuda.memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     with krylov_runs() as kr:
         res = fn()
         torch.cuda.synchronize()
     out[label] = {'wall_s': time.perf_counter() - t0, 'peak_gb': peak_gb(),
-                  'iters': kr.iters, 'solve_s': kr.seconds}
+                  'base_gb': base,
+                  'iters': kr.iters, 'solve_s': kr.seconds,
+                  'relres': kr.relres}
     return res
 
 
@@ -1548,6 +1589,448 @@ def middleware_visco(n, card, limit=1e-3):
     return out
 
 
+# --- phase 11 ------------------------------------------------------------
+
+def freqblock(n, nfreq, nsrc, card, batch=16, chunk=32):
+    """
+    Phase 11a: staged config 3 by the recipe of the bench's ``freqblock``
+    row (bench.py:487-582): the n^2 4-layer model, nfreq frequencies
+    linspace(0.5, 1.0) * 1500/16, each on its grid by targetGPW 16
+    (``freq_grid_plan``, quantum 256: the model resampled to it), nsrc
+    point sources drawn with seed 3, in batches of ``batch``; a warm-up
+    solve per grid shape, then the timed block. Every batch must reach
+    tol. The solver restarts every ``chunk`` iterations
+    (make_chunked_solver(chunk=32), as phase 5): the bench restarts every
+    16, and on frequency 0 that stops on the restart guard near 5e-4 in
+    both packages (printed here for the first batch, before the timed
+    block).
+    """
+    import torch
+    from zephyr_tpu_torch.backend import resample_field
+    from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
+    from zephyr_tpu_torch.parallel import freq_grid_plan
+    from zephyr_tpu_torch.solver.helmholtz import (
+        make_chunked_solver, prepare_operator, resolve_panels,
+        resolve_solver_config, shifted_velocity)
+    cval = 1500.0
+    c_np = layered_c(n)
+    cfg = resolve_panels(resolve_solver_config(PRODUCTION, torch.complex64),
+                         c_np)
+    freqs = np.linspace(0.5, 1.0, nfreq) * (cval / 16)
+    plans = freq_grid_plan(n, n, freqs, cval, target_gpw=16,
+                           quantum=max(n // 4, 256))
+    c_t = torch.as_tensor(c_np, device=DEV).to(torch.complex64)
+
+    def prep(freq, shape):
+        c = c_t if shape == (n, n) else resample_field(c_t, shape)
+        rho = torch.ones(shape, dtype=torch.float32, device=DEV)
+        pk = dict(dx=float(n) / shape[1], dz=float(n) / shape[0])
+        planes = minizephyr_planes(c, rho, freq, **pk)[None, None]
+        pplanes = minizephyr_planes(shifted_velocity(c, cfg.shift), rho,
+                                    freq, pml_cap=cfg.pml_cap,
+                                    **pk)[None, None]
+        return prepare_operator(planes, pplanes, cfg, with_transpose=False)
+
+    def rhs(pos, shape):
+        b = torch.zeros((pos.shape[0], 1) + shape, dtype=torch.complex64,
+                        device=DEV)
+        b[torch.arange(pos.shape[0]), 0, torch.as_tensor(pos[:, 0]),
+          torch.as_tensor(pos[:, 1])] = 1.0
+        return b
+
+    rng = np.random.default_rng(3)
+    solver = make_chunked_solver(cfg, chunk=chunk)
+    reset_peak()
+    for shape in dict.fromkeys(plans):      # warm-up, one per grid shape
+        op = prep(freqs[plans.index(shape)], shape)
+        pos = rng.integers(shape[0] // 8, 7 * shape[0] // 8, size=(batch, 2))
+        solver(op, rhs(pos, shape))
+    # the bench's restart length on frequency 0 (its grid is the first
+    # warm-up shape: the warm-up's first positions)
+    pos = np.random.default_rng(3).integers(plans[0][0] // 8,
+                                            7 * plans[0][0] // 8,
+                                            size=(batch, 2))
+    trace16 = []
+    _, it16, rr16 = make_chunked_solver(cfg, chunk=16)(
+        prep(freqs[0], plans[0]), rhs(pos, plans[0]), trace=trace16)
+    say('11a the bench\'s restarts (chunk 16), frequency 0, first batch of '
+        '%d: %d iterations, relres %.3e, chunk trace %s'
+        % (batch, it16, rr16, compact_trace(trace16)))
+    torch.cuda.synchronize()
+    iters_by_freq, worst = [], 0.0
+    t0 = time.perf_counter()
+    for i, f in enumerate(freqs):
+        shape = plans[i]
+        op = prep(f, shape)
+        pos = rng.integers(shape[0] // 8, 7 * shape[0] // 8, size=(nsrc, 2))
+        tot = 0
+        for s0 in range(0, nsrc, batch):
+            x, iters, relres = solver(op, rhs(pos[s0:s0 + batch], shape))
+            if not (np.isfinite(relres) and relres <= cfg.tol):
+                fail('freqblock %d^2: frequency %d, batch %d: relres %.3e '
+                     '> tol %.0e' % (n, i, s0 // batch, relres, cfg.tol))
+            worst = max(worst, relres)
+            tot += int(iters)
+        iters_by_freq.append(tot // max(1, nsrc // batch))
+        del op
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {'n': n, 'nfreq': nfreq, 'nsrc': nsrc, 'batch': batch,
+           'chunk': chunk, 'grids': sorted(set(plans)), 'wall_s': wall,
+           'bench_chunk16_first_batch': {'iters': it16, 'relres': rr16},
+           'solves_per_s': nfreq * nsrc / wall, 'worst_relres': worst,
+           'iters_by_freq': iters_by_freq, 'peak_gb': peak_gb()}
+    say('11a freqblock %d^2 layered, %d freq x %d src on grids %s: wall '
+        '%.3f s, %.3f solves/s, worst relres %.3e, peak %.2f GB (card %s)'
+        % (n, nfreq, nsrc, out['grids'], wall, out['solves_per_s'], worst,
+           out['peak_gb'], card))
+    say('11a iterations per frequency (mean over batches): %s'
+        % iters_by_freq)
+    return out
+
+
+def multifreq_gradient(n, nfreq, nsrc, nrec, card, limit=1e-3):
+    """
+    Phase 11b: the differentiable multi-frequency forward map
+    (``multifreq_dpred``) at n^2 on the 4-layer model, nfreq frequencies
+    0.75-1.0 x 1500/16, nsrc Kaiser sources, nrec receivers, and the
+    autograd gradient of ``fwi_misfit`` against ``fwi_misfit_grad_chunked``
+    on the same inputs (max-norm relative <= ``limit``, as phase 7c).
+    """
+    import torch
+    from zephyr_tpu_torch.parallel import (fwi_misfit, fwi_misfit_grad_chunked,
+                                           multifreq_dpred)
+    from zephyr_tpu_torch.solver.helmholtz import SolverConfig, resolve_panels
+    c = layered_c(n).astype(np.float64)
+    cfg = resolve_panels(SolverConfig(**PRODUCTION), c)
+    freqs = np.linspace(0.75, 1.0, nfreq) * (1500.0 / 16)
+    rng = np.random.default_rng(4)
+    src_pos = rng.uniform(n // 8, 7 * n // 8, size=(nsrc, 2))
+    rec_pos = np.stack([np.linspace(n // 8, 7 * n // 8, nrec),
+                        np.full(nrec, float(n // 8))], axis=1)
+    q, R = kaiser_q_R(n, nfreq, src_pos, rec_pos)
+    dobs = (0.01 * (rng.standard_normal((nfreq, nsrc, nrec))
+                    + 1j * rng.standard_normal((nfreq, nsrc, nrec)))
+            ).astype(np.complex64)
+    rho = np.ones((n, n))
+    walls = {}
+
+    def dpred():
+        with torch.no_grad():
+            return multifreq_dpred(c.astype(np.float32), rho, freqs, q, R,
+                                   config=cfg, device=DEV)
+    d = timed('multifreq_dpred', dpred, walls)
+
+    def autograd():
+        ct = torch.as_tensor(c, dtype=torch.float32, device=DEV)
+        ct.requires_grad_(True)
+        f = fwi_misfit(ct, dobs, rho, freqs, q, R, config=cfg, device=DEV)
+        g, = torch.autograd.grad(f, ct)
+        return float(f.detach()), g.cpu().numpy()
+    m_ad, g_ad = timed('fwi_misfit + autograd', autograd, walls)
+    m_ch, g_ch = timed('fwi_misfit_grad_chunked', lambda: (
+        fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs, config=cfg,
+                                chunk=nsrc, device=DEV)), walls)
+    if not (d.shape == (nfreq, nsrc, nrec) and bool(torch.isfinite(d).all())
+            and np.isfinite(g_ad).all()):
+        fail('11b: dpred shape %s / non-finite data or gradient'
+             % (tuple(d.shape),))
+    diff = float(np.max(np.abs(g_ad - g_ch)) / np.max(np.abs(g_ch)))
+    mis_diff = abs(m_ad - m_ch) / m_ch
+    out = {'n': n, 'nfreq': nfreq, 'nsrc': nsrc, 'nrec': nrec,
+           'max_rel_diff': diff, 'misfit_rel_diff': mis_diff,
+           'walls': walls}
+    say('11b multifreq_dpred + autograd fwi_misfit %d^2 layered, %d freq x '
+        '%d src x %d rec: max|g_autograd - g_chunked| / max|g_chunked| '
+        '%.3e (limit %.0e), misfit rel diff %.3e; %s (card %s)'
+        % (n, nfreq, nsrc, nrec, diff, limit, mis_diff, json.dumps(walls),
+           card))
+    if not diff <= limit:
+        fail('11b: autograd and chunked gradients differ by %.3e' % diff)
+    return out
+
+
+def multiscale(n, card, iters_per_block=3):
+    """
+    Phase 11c: staged config 5 by the recipe of the bench's ``multiscale``
+    row (bench.py:704-770): n^2 layered model with a slow box, a
+    depth-trend start, 8 sources and 32 receivers on row n/8, 4
+    frequencies; data by ``multifreq_dpred_chunked`` (restarts every 32
+    iterations, as 11a), then 2 blocks x
+    ``iters_per_block`` gradient steps by ``fwi_misfit_grad_chunked``
+    (fixed step, ~30 m/s at the gradient peak). Then the same inversion
+    through the middleware: FrequencyContinuation(Helm2DProblem,
+    Helm2DSurvey) over the same blocks, 2 ProjectedGradient iterations a
+    block, on data the survey makes at the true model. Both must lower
+    the misfit.
+    """
+    import torch
+    from zephyr_tpu_torch.backend import MiniZephyr
+    from zephyr_tpu_torch.middleware import (
+        FrequencyContinuation, Helm2DProblem, Helm2DSurvey, ProjectedGradient,
+        l2_DataMisfit)
+    from zephyr_tpu_torch.parallel import (fwi_misfit_grad_chunked,
+                                           multifreq_dpred_chunked)
+    from zephyr_tpu_torch.solver.helmholtz import SolverConfig
+    cfg = SolverConfig(**PRODUCTION)
+    nsrc, nrec, nfreq = 8, 32, 4
+    freqs = np.linspace(0.4, 1.0, nfreq) * (1500.0 / 16)
+    c_true = layered_c(n).astype(np.float64)
+    c_true[(3 * n) // 8:(5 * n) // 8, (3 * n) // 8:(5 * n) // 8] -= 150.
+    m0 = np.broadcast_to(np.linspace(1500., 3000., n)[:, None],
+                         (n, n)).copy()
+    rho = np.ones((n, n))
+    sx = np.linspace(n // 8, 7 * n // 8, nsrc).astype(int)
+    q = np.zeros((nfreq, nsrc, n, n), np.complex64)
+    for i in range(nfreq):
+        q[i, np.arange(nsrc), n // 8, sx] = 1.0
+    rxs = np.linspace(n // 8, 7 * n // 8, nrec).astype(int)
+    R = np.zeros((nrec, n * n), np.complex64)
+    R[np.arange(nrec), (n // 8) * n + rxs] = 1.0
+    blocks = [[0, 1], [2, 3]]
+    err0 = float(np.linalg.norm(m0 - c_true))
+    out = {'n': n, 'nsrc': nsrc, 'nrec': nrec, 'nfreq': nfreq,
+           'blocks': blocks}
+
+    reset_peak()
+    stats = {}
+    t0 = time.perf_counter()
+    dobs = multifreq_dpred_chunked(c_true, rho, freqs, q, R, config=cfg,
+                                   chunk=32, device=DEV, stats=stats)
+    t_data = time.perf_counter() - t0
+    m, hist, fwi_iters = m0.copy(), [], []
+    t0 = time.perf_counter()
+    for blk in blocks:
+        lr = None
+        for _ in range(iters_per_block):
+            st = {}
+            mis, grad = fwi_misfit_grad_chunked(
+                m, rho, freqs[blk], q[blk], R, dobs[blk], config=cfg,
+                chunk=16, device=DEV, stats=st)
+            if lr is None:
+                lr = 30.0 / max(float(np.abs(grad).max()), 1e-30)
+            m = m - lr * grad
+            hist.append(float(mis))
+            fwi_iters.append([(a, b) for _, _, a, b in st['iters']])
+    wall = time.perf_counter() - t0
+    out['chunked'] = {
+        'data_s': t_data, 'data_iters_by_freq': stats['iters'],
+        'data_worst_relres': max(stats['relres']), 'wall_s': wall,
+        'misfit_trajectory': hist,
+        'misfit_reduction_by_block': [
+            hist[b * iters_per_block + iters_per_block - 1]
+            / hist[b * iters_per_block] for b in range(len(blocks))],
+        'model_err_reduction': float(np.linalg.norm(m - c_true)) / err0,
+        'iters_fwd_adj': fwi_iters, 'peak_gb': peak_gb()}
+    ch = out['chunked']
+    say('11c multiscale %d^2 chunked drivers: data %.2f s (iterations per '
+        'frequency %s, worst relres %.3e), 2 blocks x %d steps %.2f s, '
+        'misfit %s, reduction by block %s, model error reduction %.4f, peak '
+        '%.2f GB (card %s)' % (n, t_data, stats['iters'],
+                               ch['data_worst_relres'], iters_per_block,
+                               wall, ['%.6e' % h for h in hist],
+                               ['%.4f' % r for r in
+                                ch['misfit_reduction_by_block']],
+                               ch['model_err_reduction'], ch['peak_gb'],
+                               card))
+    say('11c chunked (forward, adjoint) iterations per step and frequency: '
+        '%s' % fwi_iters)
+    k = iters_per_block
+    if not (np.isfinite(hist).all()
+            and all(hist[b * k + k - 1] < hist[b * k]
+                    for b in range(len(blocks)))):
+        fail('11c: the chunked drivers did not lower the misfit within each '
+             'block: %s' % hist)
+
+    geom = {'src': np.stack([sx, np.full(nsrc, n // 8)], 1).astype(float),
+            'rec': np.stack([rxs, np.full(nrec, n // 8)], 1).astype(float),
+            'mode': 'fixed'}
+    sc = {'Disc': MiniZephyr, 'nx': n, 'nz': n, 'dx': 1., 'dz': 1.,
+          'c': c_true, 'rho': 1., 'freqs': list(freqs), 'nPML': 10,
+          'geom': geom, 'solverOpts': dict(PRODUCTION), 'device': DEV}
+    reset_peak()
+    walls = {}
+    problem, survey = Helm2DProblem(sc), Helm2DSurvey(sc)
+    problem.pair(survey)
+    d_true = timed('dobs', survey.dpred, walls)
+    dobs_mw = d_true.reshape((survey.nrec, survey.nsrc, survey.nfreq))
+    sc0 = dict(sc, c=m0.copy())
+    p0, s0 = Helm2DProblem(sc0), Helm2DSurvey(sc0)
+    p0.pair(s0)
+    dmisfit = l2_DataMisfit(s0, d_true)
+    f0 = timed('misfit(m0)', lambda: dmisfit.eval(m0.ravel()), walls)
+    driver = FrequencyContinuation(
+        Helm2DProblem, Helm2DSurvey, sc, dobs_mw, blocks=blocks,
+        optFactory=lambda: ProjectedGradient(maxIter=2, print_progress=False))
+    with krylov_runs() as kr:
+        t0 = time.perf_counter()
+        m_mw = driver.run(m0)
+        torch.cuda.synchronize()
+        walls['FrequencyContinuation'] = time.perf_counter() - t0
+    f1 = timed('misfit(m)', lambda: dmisfit.eval(m_mw), walls)
+    out['middleware'] = {
+        'misfit_start': f0, 'misfit_end': f1,
+        'block_misfits': [h['f'] for h in driver.history],
+        'model_err_reduction': float(np.linalg.norm(m_mw.reshape(n, n)
+                                                    - c_true)) / err0,
+        'krylov_runs': len(kr.iters), 'max_iters': max(kr.iters),
+        'worst_relres': max(kr.relres), 'walls': walls,
+        'peak_gb': peak_gb()}
+    mw = out['middleware']
+    say('11c multiscale %d^2 middleware FrequencyContinuation (2 blocks x 2 '
+        'ProjectedGradient iterations): misfit over all frequencies %.6e -> '
+        '%.6e (its solves: iterations %s, worst relres %.3e), block misfits '
+        '%s, model error reduction %.4f, %d Krylov runs in the driver (at '
+        'most %d iterations, worst relres %.3e), peak %.2f GB; %s (card %s)'
+        % (n, f0, f1, walls['misfit(m)']['iters'],
+           max(walls['misfit(m)']['relres']),
+           ['%.6e' % f for f in mw['block_misfits']],
+           mw['model_err_reduction'], mw['krylov_runs'], mw['max_iters'],
+           mw['worst_relres'], mw['peak_gb'], json.dumps(walls), card))
+    if not (np.isfinite(f1) and f1 < f0):
+        fail('11c: FrequencyContinuation did not lower the misfit: %.6e -> '
+             '%.6e' % (f0, f1))
+    return out
+
+
+def oracle_25d(card):
+    """
+    Phase 11d, first part: the reference's 2.5D oracle
+    (tests/test_minizephyr.py:88-115): MiniZephyr25D * q at 200x100, nky
+    20, against AnalyticalHelmholtz in 3D, with the production solver
+    options, on the card; interior-window error below 1e-2.
+    """
+    from zephyr_tpu_torch.backend import (MiniZephyr25D, SimpleSource,
+                                          AnalyticalHelmholtz)
+    config = {'c': 2500., 'rho': 1., 'nx': 100, 'nz': 200, 'freq': 200.,
+              'nky': 20, '3D': True, 'solverOpts': dict(PRODUCTION),
+              'device': DEV}
+    loc = np.array([[25., 25.]])
+    reset_peak()
+    with krylov_runs() as kr:
+        t0 = time.perf_counter()
+        u = MiniZephyr25D(config) * SimpleSource(config)(loc)
+        secs = time.perf_counter() - t0
+    uA = np.asarray(AnalyticalHelmholtz(config)(loc))
+    if u.shape != (200 * 100, 1) or not np.isfinite(u).all():
+        fail('2.5D oracle: wavefield of shape %s' % (u.shape,))
+    seg = (slice(40, 180), slice(40, 80))
+    rel = ((uA.reshape(200, 100)[seg] - u.reshape(200, 100)[seg])
+           / abs(uA.reshape(200, 100)[seg]))
+    err = float(np.sqrt((rel.conj() * rel).sum()).real / rel.size)
+    out = {'error': err, 'wall_s': secs, 'iters_by_ky': kr.iters,
+           'worst_relres': max(kr.relres), 'peak_gb': peak_gb()}
+    say('11d 2.5D oracle 200x100 nky 20 MiniZephyr25D * q: error %.3e (limit '
+        '1e-2), %.2f s, iterations per ky %s, worst relres %.3e, peak %.2f '
+        'GB (card %s)' % (err, secs, kr.iters, out['worst_relres'],
+                          out['peak_gb'], card))
+    if not err < 1e-2:
+        fail('2.5D oracle error %.3e >= 1e-2' % err)
+    return out
+
+
+def middleware_25d(n, nky, card, limit=1e-3):
+    """
+    Phase 11d, second part: Helm25DProblem + Helm25DSurvey on the bench's
+    Marmousi model at n^2 (the reference's remDists chain: MultiFreq over
+    MiniZephyr25D over MiniZephyr), nky cross-line wavenumbers, one
+    frequency 1500/16, phase 7a's 16 sources and 64 receivers, the
+    production config: survey.dpred() through the distributor, the
+    differentiable forward map (its per-ky iterations; its peak beside
+    that of the same map at nky 2), Jvec twice (the first and the second
+    call timed apart), Jtvec and their dot test (within ``limit``), and
+    ``multifreq_dpred_25d`` on the same model, sources and receivers
+    (within ``limit`` of dpred).
+    """
+    import torch
+    from zephyr_tpu_torch.backend import MiniZephyr25D
+    from zephyr_tpu_torch.middleware import Helm25DProblem, Helm25DSurvey
+    from zephyr_tpu_torch.parallel import multifreq_dpred_25d
+    c = marmousi_c(n).astype(np.float64)
+    freq = 1500.0 / 16
+    problem, survey = middleware_pair(
+        Helm25DProblem, Helm25DSurvey, n, c, [freq],
+        remDists=[MiniZephyr25D], nky=nky, parallel=False,
+        cmin=float(c.min()))
+    cfg = problem.solverConfig
+    out = {'n': n, 'nky': nky, 'nsrc': survey.nsrc, 'nrec': survey.nrec,
+           'panels': cfg.strat_panels}
+    walls = {}
+    d = timed('dpred', survey.dpred, walls)
+    if not (d.shape == (survey.nD,) and np.isfinite(d).all()
+            and np.abs(d).max() > 0):
+        fail('11d dpred %d^2: shape %s, finite %s'
+             % (n, d.shape, np.isfinite(d).all()))
+    # the distributor keeps every ky subproblem's operator (the
+    # reference's cached factors); drop them before the forward map
+    del problem.factors
+    torch.cuda.empty_cache()
+
+    def forward_map(p):
+        with torch.no_grad():
+            return p._dpred_fn()(p._baseTensor())
+    d_fn = timed('forward map', lambda: forward_map(problem),
+                 walls).cpu().numpy().ravel()
+    out['forward_rel_diff'] = float(np.linalg.norm(d_fn - d)
+                                    / np.linalg.norm(d))
+    out['iters_by_ky'] = walls['forward map']['iters']
+    p2, _ = middleware_pair(Helm25DProblem, Helm25DSurvey, n, c, [freq],
+                            remDists=[MiniZephyr25D], nky=2,
+                            parallel=False, cmin=float(c.min()))
+    timed('forward map nky 2', lambda: forward_map(p2), walls)
+
+    v = 10.0 * smooth_field(n, 13).ravel()
+    rng = np.random.default_rng(14)
+    w = rng.standard_normal(survey.nD) + 1j * rng.standard_normal(survey.nD)
+    timed('Jvec (first)', lambda: problem.Jvec(v=v), walls)
+    jv = timed('Jvec (second)', lambda: problem.Jvec(v=v), walls)
+    jtw = timed('Jtvec', lambda: problem.Jtvec(v=w), walls)
+    if not (np.isfinite(jv).all() and np.isfinite(jtw).all()):
+        fail('11d: non-finite Jvec or Jtvec')
+    lhs = float(np.real(np.vdot(w, jv)))
+    out['dot_test'] = abs(lhs - float(np.dot(jtw.astype(np.float64), v))) \
+        / abs(lhs)
+
+    q = np.stack([survey.getSources()[0].toarray().T.reshape(-1, n, n)])
+    R = survey.rVec(0).toarray()
+    d25 = timed('multifreq_dpred_25d', lambda: multifreq_dpred_25d(
+        c.astype(np.float32), np.ones((n, n)), [freq],
+        q.astype(np.complex64), R, nky, cmin=float(c.min()), config=cfg,
+        device=DEV), walls)
+    d25 = d25.cpu().numpy()[0].T.ravel()      # (nrec, nsrc) as dpred
+    out['multifreq_25d_rel_diff'] = float(np.linalg.norm(d25 - d)
+                                          / np.linalg.norm(d))
+    out['walls'] = walls
+    say('11d 2.5D %d^2 marmousi (%d panels), nky %d, %d src x %d rec x 1 '
+        'freq: forward map vs dpred %.3e, multifreq_dpred_25d vs dpred %.3e, '
+        'dot test %.3e (limits %.0e)' % (
+            n, out['panels'], nky, survey.nsrc, survey.nrec,
+            out['forward_rel_diff'], out['multifreq_25d_rel_diff'],
+            out['dot_test'], limit))
+    say('11d iterations per ky (ky_j = j f / (cmin (nky - 1)), ky = 0 first; '
+        'a cell of velocity c is evanescent where ky > f / c): %s'
+        % out['iters_by_ky'])
+    for k, row in walls.items():
+        say('11d   %s: wall %.3f s, peak %.2f GB (%.2f GB at its start), '
+            'Krylov runs %d (%d iterations in all, worst relres %.3e) '
+            '(card %s)' % (k, row['wall_s'], row['peak_gb'], row['base_gb'],
+                           len(row['iters']), sum(row['iters']),
+                           max(row['relres'] or [0.0]), card))
+    for key in ('forward_rel_diff', 'multifreq_25d_rel_diff', 'dot_test'):
+        if not out[key] <= limit:
+            fail('11d: %s %.3e > %.0e' % (key, out[key], limit))
+    return out
+
+
+def phase11(card, nky=20):
+    '''Phase 11's sub-phases at their sizes, by name, in order.'''
+    return {'freqblock': lambda: freqblock(768, 16, 96, card),
+            'gradient': lambda: multifreq_gradient(512, 4, 16, 64, card),
+            'multiscale': lambda: multiscale(256, card),
+            'oracle_25d': lambda: oracle_25d(card),
+            'middleware_25d': lambda: middleware_25d(512, nky, card)}
+
+
 #: the kernels each main path must launch (phase 6)
 SCALAR_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                'prolong_add_smooth', 'jacobi_sweep', 'restrict', 'prolong')
@@ -1558,6 +2041,7 @@ MARMOUSI_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                  'presmooth_residual')
 MIDDLEWARE_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                    'prolong_add_smooth', 'restrict', 'prolong')
+MULTIFREQ_PATH = MIDDLEWARE_PATH
 
 
 def main():
@@ -1615,12 +2099,14 @@ def main():
     torch.cuda.synchronize()
     launches['scalar'] = dict(ck.LAUNCHES)
     ck.reset_launches()
-    # the layered row stalls on the card (fault F4: 2000 iterations,
-    # 80 s a solve), so it runs once, after the hom row has warmed
-    # every code path
+    # the layered row stalls on the card (fault F4: at 3.78e-2 from its
+    # sixth chunk on), so it runs once, after the hom row has warmed
+    # every code path, and stops after 20 chunks (320 iterations; the
+    # full 2000 took 88 s)
     tti = {'oracle': [eurus_oracle((0., 0.)), eurus_oracle((0.2, 0.2))],
            'eurus': tti_bench(512, 16, 'hom', card),
-           'eurus_layered': tti_bench(256, 16, 'layered', card, warm=False),
+           'eurus_layered': tti_bench(256, 16, 'layered', card, warm=False,
+                                      max_chunks=20),
            'pin': tti_pin(card)}
     torch.cuda.synchronize()
     launches['tti'] = dict(ck.LAUNCHES)
@@ -1645,11 +2131,16 @@ def main():
           'visco': middleware_visco(512, card)}
     torch.cuda.synchronize()
     launches['middleware'] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    mf = {name: run() for name, run in phase11(card).items()}
+    torch.cuda.synchronize()
+    launches['multifreq'] = dict(ck.LAUNCHES)
 
     # phase 6
     for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH),
                         ('marmousi', MARMOUSI_PATH),
-                        ('middleware', MIDDLEWARE_PATH)):
+                        ('middleware', MIDDLEWARE_PATH),
+                        ('multifreq', MULTIFREQ_PATH)):
         say('launches over the %s path: %s'
             % (path, json.dumps(launches[path])))
         for name in names:
@@ -1673,6 +2164,7 @@ def main():
     say(json.dumps({'tti': tti, 'card': card}))
     say(json.dumps({'marmousi': marm, 'card': card}))
     say(json.dumps({'middleware': mw, 'card': card}))
+    say(json.dumps({'multifreq': mf, 'card': card}))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():

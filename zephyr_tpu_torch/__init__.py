@@ -10,13 +10,19 @@ the same path:
                               and its torch twins, the CUDA kernel loader
 - zephyr_tpu_torch.solver   — multigrid, stratified PCR, BiCGStab and the
                               hybrid Helmholtz solve, differentiable
-- zephyr_tpu_torch.backend  — forward modelling (MiniZephyr, Eurus,
-                              sources, the analytical oracle, grid
-                              interpolation, the MultiFreq distributors)
-- zephyr_tpu_torch.parallel — the chunked adjoint-state FWI gradient
-- zephyr_tpu_torch.middleware — the 2D inverse problem: surveys,
-                              problems with exact Jvec/Jtvec, the
-                              host-side I/O and inversion helpers
+- zephyr_tpu_torch.backend  — forward modelling (MiniZephyr, its 2.5D
+                              ky sum MiniZephyr25D, Eurus, sources, the
+                              analytical oracle, grid interpolation, the
+                              MultiFreq distributors)
+- zephyr_tpu_torch.parallel — multi-frequency modelling on one device:
+                              per-frequency operators and solves, the
+                              differentiable forward map and misfit, the
+                              chunked and 2.5D forward modelling, the
+                              chunked adjoint-state FWI gradient
+- zephyr_tpu_torch.middleware — the 2D and 2.5D inverse problems:
+                              surveys, problems with exact Jvec/Jtvec,
+                              the inversion drivers (frequency
+                              continuation), the host-side I/O helpers
 - zephyr_tpu_torch.convert  — the JAX package's prepared state into the
                               port's
 - zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K9 (sm_90a), one

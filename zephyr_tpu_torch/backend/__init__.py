@@ -5,7 +5,7 @@ of zephyr_tpu.backend that this port carries.
 
 from .base import BaseModelDependent, BaseAnisotropic
 from .discretization import BaseDiscretization, DiscretizationWrapper
-from .minizephyr import MiniZephyr, MiniZephyrHD
+from .minizephyr import MiniZephyr, MiniZephyrHD, MiniZephyr25D
 from .eurus import Eurus, EurusHD
 from .distributors import (BaseDist, BaseMPDist, BaseIPYDist, MultiFreq,
                            ViscoMultiFreq, SerialMultiFreq,

@@ -7,9 +7,10 @@ StratPCR). After ``jax.tree_util.tree_map(np.asarray, op)`` every leaf is
 a numpy array; ``operator_from_numpy`` rebuilds the port's
 HelmholtzOperator from such a tree by attribute name, so the two packages
 can be fed the same prepared state and a mismatch is isolated to either
-the preparation or the solve. ``system_config`` carries a JAX-side
-systemConfig (the model as numpy arrays, the classes by name) over to the
-port's classes. This module reads attributes and class names only and
+the preparation or the solve; ``multifreq_ops_from_numpy`` does so for
+each frequency of a stacked multi-frequency operator. ``system_config``
+carries a JAX-side systemConfig (the model as numpy arrays, the classes
+by name) over to the port's classes. This module reads attributes and class names only and
 imports neither jax nor the JAX package.
 '''
 
@@ -122,6 +123,35 @@ def operator_from_numpy(tree, device=DEFAULT_DEVICE):
                              _opt(getattr(tree, 'planesT', None), device))
 
 
+def _take(node, i):
+    '''
+    Entry i of every leaf of a tree of NamedTuples, tuples and numpy
+    leaves with a leading batch axis (None stays None).
+    '''
+    if node is None:
+        return None
+    if isinstance(node, tuple) and hasattr(node, '_fields'):
+        return type(node)(*(_take(x, i) for x in node))
+    if isinstance(node, (tuple, list)):
+        return type(node)(_take(x, i) for x in node)
+    return np.asarray(node)[i]
+
+
+def multifreq_ops_from_numpy(tree, device=DEFAULT_DEVICE):
+    '''
+    The port's per-frequency operator list from the JAX package's
+    ``build_multifreq_ops`` result (one HelmholtzOperator pytree whose
+    leaves carry a leading frequency axis) after ``np.asarray`` of every
+    leaf: the leading axis is sliced and each frequency goes through
+    ``operator_from_numpy``, on ``device`` (the card unless 'cpu' is asked
+    for).
+    '''
+
+    nfreq = np.shape(tree.planes)[0]
+    return [operator_from_numpy(_take(tree, i), device)
+            for i in range(nfreq)]
+
+
 def system_config(sc, device=DEFAULT_DEVICE, dtype=None):
     '''
     A copy of a JAX-side systemConfig for the port: its ``Disc``,
@@ -142,11 +172,8 @@ def system_config(sc, device=DEFAULT_DEVICE, dtype=None):
             return cls
         port = getattr(backend, cls.__name__, None)
         if not isinstance(port, type):
-            hint = (' (2.5D: ROADMAP Queue 1, item 13)'
-                    if '25D' in cls.__name__ else '')
             raise NotImplementedError('system_config: %s is not ported to '
-                                      'zephyr_tpu_torch%s'
-                                      % (cls.__name__, hint))
+                                      'zephyr_tpu_torch' % cls.__name__)
         return port
 
     out = dict(sc)

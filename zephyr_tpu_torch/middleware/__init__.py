@@ -1,8 +1,7 @@
 '''
 zephyr_tpu_torch middleware: the inverse-problem layer, with the public
-names of zephyr_tpu.middleware that this port carries (the inversion
-loop and the 2.5D problems' solve are not ported yet: ROADMAP Queue 1,
-item 13).
+names of zephyr_tpu.middleware: surveys, the 2D and 2.5D problems, the
+inversion drivers and the host-side I/O helpers.
 '''
 
 from .problem import (HelmBaseProblem, Helm2DProblem, Helm2DViscoProblem,
@@ -17,6 +16,8 @@ from .regularization import (BaseRegularization, HelmBaseRegularization,
                              SmoothRegularization)
 from .optimization import (Minimize, GradientDescent, ProjectedGradient,
                            LBFGS)
+from .inversion import (l2_DataMisfit, BaseInvProblem, BaseInversion,
+                        FrequencyContinuation)
 from .mesh import TensorMesh2D
 from .time import (dwavelet, dftreal, idftreal, BaseTimeSensitive,
                    TimeMachine)

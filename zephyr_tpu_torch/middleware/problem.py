@@ -20,9 +20,13 @@ and receiver matrices are built on the device from the survey's sparse
 matrices; the receiver products are gathers and sums, so no matmul (and
 no TF32 switch) enters them.
 
+The 2.5D problems sum each frequency's wavefields over cross-line
+wavenumbers ky in a host loop (``parallel.multifreq.ky_summed_fields``),
+one prepared operator at a time: Jvec runs one tangent solve a ky,
+Jtvec and the misfit gradient one transpose solve a ky.
+
 Everything runs on the card unless the ``device`` config key says 'cpu';
 ``dtype`` defaults to complex64 on the card and complex128 on the CPU.
-The 2.5D problems are not ported yet and raise.
 '''
 
 import hashlib
@@ -36,11 +40,12 @@ from ..core.attrmap import BaseSCCache
 from ..core.device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from ..backend import (BaseModelDependent, MultiFreq, ViscoMultiFreq,
                        ViscoMultiGridMultiFreq)
-from ..backend.minizephyr import MiniZephyr, MiniZephyrHD
+from ..backend.minizephyr import MiniZephyr, MiniZephyrHD, MiniZephyr25D
 from ..backend.eurus import Eurus, EurusHD
 from ..backend.interpolation import resample_field
 from ..ops.minizephyr_coeff import minizephyr_planes
 from ..ops.eurus_coeff import eurus_planes
+from ..parallel.multifreq import ky_summed_fields
 from ..solver.helmholtz import (prepare_operator, resolve_panels,
                                 resolve_solver_config, solve_batched,
                                 shifted_velocity)
@@ -50,10 +55,6 @@ from .fields import HelmFields
 from .mesh import TensorMesh2D
 
 EPS = 1e-15
-
-#: the ROADMAP item that ports the 2.5D problems
-PROBLEMS_25D = ('2.5D problems (MiniZephyr25D and the ky summation) are '
-                'not ported yet: ROADMAP Queue 1, item 13')
 
 
 def _source_batch(q, premul, nblock, nz, nx, device, dtype):
@@ -237,8 +238,9 @@ class HelmBaseProblem(BaseModelDependent, BaseSCCache):
         Disc = self.systemConfig.get('Disc', MiniZephyr)
         is_eurus = issubclass(Disc, Eurus)
         is_hd = issubclass(Disc, (MiniZephyrHD, EurusHD))
-        is_25d = (int(self.systemConfig.get('nky', 1) or 1) > 1
-                  and not is_eurus)
+        is_25d = issubclass(Disc, MiniZephyr25D) or \
+            (int(self.systemConfig.get('nky', 1) or 1) > 1
+             and not is_eurus)
         return Disc, is_eurus, is_hd, is_25d
 
     def _modelTransform(self, c, freq, Q=None):
@@ -294,6 +296,22 @@ class HelmBaseProblem(BaseModelDependent, BaseSCCache):
             cfg = resolve_panels(cfg, np.asarray(c).reshape(nz, nx))
         return cfg
 
+    def _solve_25d(self, ci, rho, f, b, cfg, kwargs):
+        '''
+        One frequency's 2.5D wavefields (nsrc, nz, nx), conjugated: the
+        Fourier summation over cross-line wavenumbers with the reference
+        MiniZephyr25D conventions (minizephyr.py:380-433) on the
+        (nsrc, 1, nz, nx) right-hand sides ``b``, for the velocity tensor
+        ``ci``. A host loop over ky holds one prepared operator at a time
+        (the JAX package's lax.scan path; its vmap path for nky <= 8 sums
+        the same terms in another order).
+        '''
+
+        sc = self.systemConfig
+        nky = int(sc.get('nky', 1) or 1)
+        cmin = float(sc.get('cmin', np.min(self.baseVelocity)))
+        return ky_summed_fields(ci, rho, f, b, nky, cmin, cfg, **kwargs)
+
     def _surveyFingerprint(self):
         '''
         Value-based fingerprint of everything the cached forward map
@@ -342,10 +360,8 @@ class HelmBaseProblem(BaseModelDependent, BaseSCCache):
         dev, cdtype = self.device, self.dtype
         rdtype = torch.empty((), dtype=cdtype).real.dtype
         Disc, is_eurus, is_hd, is_25d = self._discInfo()
-        if is_25d:
-            raise NotImplementedError(PROBLEMS_25D)
         is_mg = isinstance(survey, HelmMultiGridSurvey)
-        if is_mg and is_eurus:
+        if is_mg and (is_eurus or is_25d):
             raise NotImplementedError(
                 'per-frequency computation grids are bound to the '
                 'scalar 2D (visco) problem, as in the reference '
@@ -405,8 +421,9 @@ class HelmBaseProblem(BaseModelDependent, BaseSCCache):
 
         bs, rxs = [], []
         for i, (q, f) in enumerate(zip(survey.getSources(), freqs)):
-            premul = np.sqrt(2j * np.pi * f) if is_hd else \
-                complex(self.systemConfig.get('premul', 1.))
+            # the 2.5D sum carries its own per-ky premultipliers
+            premul = 1. if is_25d else np.sqrt(2j * np.pi * f) if is_hd \
+                else complex(self.systemConfig.get('premul', 1.))
             nz_i, nx_i = geoms[i][:2]
             bs.append(_source_batch(q, premul, B, nz_i, nx_i, dev, cdtype))
             mats = ([_rv(0, i)] if survey.mode == 'fixed'
@@ -424,6 +441,11 @@ class HelmBaseProblem(BaseModelDependent, BaseSCCache):
                 c_i = (resample_field(c_real, (nz_i, nx_i))
                        if (nz_i, nx_i) != (nz, nx) else c_real)
                 ci = self._modelTransform(c_i, f, Q=Qs[i]).to(cdtype)
+                if is_25d:
+                    u = self._solve_25d(ci, rhos[i], f, bs[i], cfg, kw)
+                    panels.append(rxs[i].project(
+                        u.reshape((u.shape[0], nz_i * nx_i))))
+                    continue
                 planes = plane_fn(ci, rhos[i], freq=f, **kw)
                 pplanes = plane_fn(
                     shifted_velocity(ci.detach(), cfg.shift), rhos[i],
@@ -542,7 +564,6 @@ class Helm2DViscoMultiGridProblem(Helm2DProblem):
 
 
 class Helm25DProblem(HelmBaseProblem):
-    'Declared for the JAX package\'s names; raises until 2.5D is ported.'
 
     initMap = {
     #   Argument            Required    Rename as ...   Store as type
@@ -551,9 +572,6 @@ class Helm25DProblem(HelmBaseProblem):
 
     surveyPair = Helm25DSurvey
     SystemWrapper = MultiFreq
-
-    def __init__(self, systemConfig, *args, **kwargs):
-        raise NotImplementedError(PROBLEMS_25D)
 
 
 class Helm25DViscoProblem(Helm25DProblem):

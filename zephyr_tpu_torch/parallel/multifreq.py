@@ -1,14 +1,30 @@
 '''
-Multi-frequency FWI on one device: the port of the production gradient
-routine of ``zephyr_tpu.parallel.multifreq``.
+Multi-frequency modelling and FWI on one device: the port of
+``zephyr_tpu.parallel.multifreq``.
 
-``fwi_misfit_grad_chunked`` is the host-driven adjoint-state FWI misfit
-and gradient: per frequency one prepared forward operator and one on the
-transposed planes, restarted chunked solves for the source batch
-(forward, then adjoint), and the gradient term through the
-differentiable plane construction (autograd). ``freq_grid_plan`` picks
-each frequency's grid by the reference's targetGPW rule; ``_kaiser_stamps``
-builds the per-grid source and receiver stamps.
+- ``build_multifreq_ops`` prepares one Helmholtz operator per frequency
+  (a list: the JAX package vmaps them into one pytree with a leading
+  frequency axis); ``multifreq_solve`` solves every (frequency, source)
+  system on them; ``multifreq_dpred`` is the differentiable forward map
+  c -> data (nfreq, nsrc, nrec) and ``fwi_misfit`` its least-squares
+  misfit, both differentiable with ``torch.autograd`` through the solve.
+- ``multifreq_dpred_chunked`` is the host-driven production forward
+  modelling: per frequency one prepared operator and restarted chunked
+  solves over the source batch.
+- ``multifreq_dpred_25d`` is 2.5D modelling: the Fourier summation over
+  cross-line wavenumbers ky (``ky_summed_fields``), one prepared operator
+  at a time.
+- ``fwi_misfit_grad_chunked`` is the host-driven adjoint-state FWI misfit
+  and gradient: per frequency one prepared forward operator and one on the
+  transposed planes, restarted chunked solves for the source batch
+  (forward, then adjoint), and the gradient term through the
+  differentiable plane construction (autograd). ``freq_grid_plan`` picks
+  each frequency's grid by the reference's targetGPW rule;
+  ``_kaiser_stamps`` builds the per-grid source and receiver stamps.
+
+Every entry point runs on the card unless the caller passes
+``device='cpu'``. Receiver matrices are applied as gathers and sums over
+their nonzeros: no matmul, so no TF32 setting reaches the data.
 '''
 
 import math
@@ -18,13 +34,15 @@ import numpy as np
 import torch
 
 from ..backend.interpolation import resample_field
-from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..ops.kaiser import inject
+from ..core.device import DEFAULT_DEVICE, resolve_device, resolve_dtype
+from ..ops.eurus_coeff import eurus_planes
+from ..ops.kaiser import extract, inject, pad_stamps
 from ..ops.minizephyr_coeff import minizephyr_planes
 from ..ops.stencil import plane_products, transpose_block_planes
-from ..solver.helmholtz import (SolverConfig, make_chunked_solver,
-                                prepare_operator, resolve_panels,
-                                shifted_velocity)
+from ..solver.helmholtz import (TTI_GRADIENTS, SolverConfig,
+                                make_chunked_solver, prepare_operator,
+                                resolve_panels, shifted_velocity,
+                                solve_batched)
 
 
 def viscous_velocity(c, freq, Q=np.inf, freqBase=0.0):
@@ -44,6 +62,298 @@ def viscous_velocity(c, freq, Q=np.inf, freqBase=0.0):
         cR = fact * c
         return cR + 0.5j * cR / Q
     return c + 0.5j * c / Q
+
+
+def _complex_dtype(a):
+    '''
+    The working precision of a source array or tensor: complex128 for
+    complex128 (or float64) data, else complex64.
+    '''
+    if isinstance(a, torch.Tensor):
+        wide = a.dtype in (torch.complex128, torch.float64)
+    else:
+        wide = np.asarray(a).dtype in (np.complex128, np.float64)
+    return torch.complex128 if wide else torch.complex64
+
+
+def _field(a, dev, dtype):
+    '''
+    ``a`` (a numpy array, a number or a tensor) as a tensor of ``dtype``
+    on ``dev``; a tensor keeps its autograd history. A real ``dtype``
+    takes the real part of complex input.
+    '''
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        if not dtype.is_complex:
+            a = np.real(a)
+        a = torch.as_tensor(np.ascontiguousarray(a))
+    elif not dtype.is_complex and a.is_complex():
+        a = a.real
+    return a.to(device=dev, dtype=dtype)
+
+
+def _freq_list(freqs):
+    'The frequencies as a list of Python floats.'
+    if isinstance(freqs, torch.Tensor):
+        freqs = freqs.detach().cpu().numpy()
+    return [float(f) for f in np.real(np.asarray(freqs)).ravel()]
+
+
+def _receivers(R, dev, dtype):
+    '''
+    A receiver matrix R (nrec, nz * nx) as padded stamps (cols, vals)
+    (nrec, K) on the device, its nonzeros: ``extract`` with them is R u
+    per source, a gather and a sum, not a matmul.
+    '''
+    if isinstance(R, torch.Tensor):
+        R = R.detach().cpu().numpy()
+    R = np.asarray(R)
+    rows, cols = np.nonzero(R)
+    cols, vals = pad_stamps(rows, cols, R[rows, cols], R.shape[0])
+    return (torch.as_tensor(cols, device=dev),
+            torch.as_tensor(vals, device=dev).to(dtype))
+
+
+def build_multifreq_ops(c, rho, freqs, config=SolverConfig(), ky=0.0,
+                        Q=np.inf, freqBase=0.0, eurus_params=None,
+                        device=DEFAULT_DEVICE, dtype=None, **plane_kwargs):
+    '''
+    Build per-frequency Helmholtz operators (planes + multigrid
+    hierarchies + stratified solve), one HelmholtzOperator per frequency
+    in a list. Differentiable w.r.t. c and rho: each operator's
+    ``planes`` carry the autograd history of ``c`` (the preconditioner is
+    built from detached planes).
+
+    Args:
+        c: (nz, nx) real or complex velocity (array or tensor)
+        rho: (nz, nx) density
+        freqs: (nfreq,) frequencies
+        eurus_params: None for MiniZephyr; dict(theta, eps, delta, cPML)
+            for the Eurus TTI operator, forward only (no transposed parts;
+            a gradient request raises: ROADMAP item 8b)
+        device: the card unless 'cpu' is asked for
+        dtype: complex64 or complex128 (default: complex64 on the card,
+            complex128 on the CPU)
+        plane_kwargs: dx, dz, nPML, tau, freeSurf
+
+    Returns:
+        [HelmholtzOperator] of length nfreq.
+    '''
+
+    dev = resolve_device(device)
+    cdtype = resolve_dtype(dtype, dev)
+    rdtype = torch.empty((), dtype=cdtype).real.dtype
+    c = _field(c, dev, cdtype)
+    rho = _field(rho, dev, rdtype)
+    if eurus_params is not None:
+        if c.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(TTI_GRADIENTS)
+        eurus_params = {k: (v if k == 'cPML' else _field(v, dev, rdtype))
+                        for k, v in eurus_params.items()}
+
+    ops = []
+    for freq in _freq_list(freqs):
+        ci = viscous_velocity(c, freq, Q, freqBase)
+        csh = shifted_velocity(ci.detach(), config.shift)
+        if eurus_params is None:
+            planes = minizephyr_planes(ci, rho, freq, ky=ky,
+                                       **plane_kwargs)[None, None]
+            pplanes = minizephyr_planes(csh, rho, freq, ky=ky,
+                                        pml_cap=config.pml_cap,
+                                        **plane_kwargs)[None, None]
+        else:
+            planes = eurus_planes(ci, rho, freq, **eurus_params,
+                                  **plane_kwargs)
+            pplanes = eurus_planes(csh, rho, freq, pml_cap=config.pml_cap,
+                                   **eurus_params, **plane_kwargs)
+        ops.append(prepare_operator(planes, pplanes, config,
+                                    with_transpose=eurus_params is None))
+    return ops
+
+
+def multifreq_solve(ops, b, config=SolverConfig()):
+    '''
+    Solve all (freq, src) systems: b (nfreq, nsrc, B, nz, nx) on the
+    operators' device (a numpy array is moved there); returns wavefields
+    of the same shape, conjugated per the reference FT convention
+    (discretization.py:101-103). Differentiable through each operator's
+    planes and through b.
+    '''
+
+    planes0 = ops[0].planes
+    b = _field(b, planes0.device, planes0.dtype)
+    xs = [solve_batched(op._replace(planes=op.planes.detach()), b[i],
+                        config, planes=op.planes)
+          for i, op in enumerate(ops)]
+    return torch.conj_physical(torch.stack(xs))
+
+
+def multifreq_dpred(c, rho, freqs, q, R, config=SolverConfig(),
+                    premul=None, Q=np.inf, freqBase=0.0,
+                    eurus_params=None, device=DEFAULT_DEVICE,
+                    **plane_kwargs):
+    '''
+    The differentiable forward map c (nz, nx) -> data cube
+    (nfreq, nsrc, nrec), a tensor on ``device``.
+
+    Args:
+        q: (nfreq, nsrc, nz, nx) source fields (already weighted by the
+           per-frequency source spectrum); their dtype (complex128, else
+           complex64) is the working precision
+        R: (nrec, nz*nx) receiver extraction matrix
+        premul: (nfreq,) complex premultipliers (e.g. half-derivative)
+    '''
+
+    dev = resolve_device(device)
+    cdtype = _complex_dtype(q)
+    q = _field(q, dev, cdtype)
+    nfreq = q.shape[0]
+    ops = build_multifreq_ops(c, rho, freqs, config, Q=Q,
+                              freqBase=freqBase, eurus_params=eurus_params,
+                              device=dev, dtype=cdtype, **plane_kwargs)
+    b = q if premul is None else q * _field(premul, dev, cdtype).reshape(
+        (nfreq, 1, 1, 1))
+    b = b[:, :, None]                      # (nfreq, nsrc, 1, nz, nx)
+    if eurus_params is not None:
+        b = torch.cat([b, torch.zeros_like(b)], dim=2)
+    u = multifreq_solve(ops, b, config)    # (nfreq, nsrc, B, nz, nx)
+    return extract(u[:, :, 0], *_receivers(R, dev, cdtype))
+
+
+def ky_summed_fields(ci, rho, freq, b, nky, cmin, config=SolverConfig(),
+                     **plane_kwargs):
+    '''
+    One frequency's 2.5D wavefields: the Fourier summation over cross-line
+    wavenumbers with the reference MiniZephyr25D conventions
+    (minizephyr.py:380-433): regular sampling dky = freq / (cmin
+    (nky - 1)), inverse-DFT weights 1 + (ky > 0) with the 1 / (2 nky - 1)
+    normalisation folded into per-ky premultipliers, the sum scaled by
+    exp(i pi) / 4 pi.
+
+    ``ci`` is the (nz, nx) complex velocity tensor (any dispersion
+    applied), ``b`` the (nsrc, 1, nz, nx) right-hand sides. The ky loop
+    runs on the host and holds one prepared operator at a time (the JAX
+    package's lax.scan path), so memory does not grow with nky outside
+    reverse-mode autograd, which keeps each ky's solve for the backward.
+    Differentiable w.r.t. ``ci`` in forward and reverse mode. Returns the
+    conjugated, ky-summed wavefields (nsrc, nz, nx).
+    '''
+
+    nky = int(nky)
+    weightfac = 1. / (2 * nky - 1) if nky > 1 else 1.
+    dky = freq / (cmin * (nky - 1)) if nky > 1 else 0.
+    needs_grad = torch.is_grad_enabled() and ci.requires_grad
+    csh = shifted_velocity(ci.detach(), config.shift)
+    acc = None
+    for j in range(nky):
+        ky = j * dky
+        premul = weightfac * (1. + (ky > 0))
+        planes = minizephyr_planes(ci, rho, freq, ky=ky,
+                                   **plane_kwargs)[None, None]
+        pplanes = minizephyr_planes(csh, rho, freq, ky=ky,
+                                    pml_cap=config.pml_cap,
+                                    **plane_kwargs)[None, None]
+        op = prepare_operator(planes.detach(), pplanes, config,
+                              with_transpose=needs_grad)
+        x = solve_batched(op, premul * b, config, planes=planes)
+        del op
+        u = torch.conj(x[:, 0])
+        acc = u if acc is None else acc + u
+    return (np.exp(1j * np.pi) / (4 * np.pi)) * acc
+
+
+def multifreq_dpred_25d(c, rho, freqs, q, R, nky, cmin=None,
+                        config=SolverConfig(), Q=np.inf, freqBase=0.0,
+                        device=DEFAULT_DEVICE, **plane_kwargs):
+    '''
+    2.5D forward modelling: Fourier summation over cross-line wavenumbers
+    (the reference's MiniZephyr25D, zephyr/backend/minizephyr.py:346-461)
+    by ``ky_summed_fields``, one frequency and one ky at a time on the
+    host. Returns the data cube (nfreq, nsrc, nrec), a tensor on
+    ``device``, differentiable w.r.t. c. ``q`` (nfreq, nsrc, nz, nx) sets
+    the working precision as in ``multifreq_dpred``.
+    '''
+
+    dev = resolve_device(device)
+    cdtype = _complex_dtype(q)
+    rdtype = torch.empty((), dtype=cdtype).real.dtype
+    q = _field(q, dev, cdtype)
+    c = _field(c, dev, cdtype)
+    rho = _field(rho, dev, rdtype)
+    if cmin is None:
+        cmin = float(torch.min(c.real.detach()))
+    rx = _receivers(R, dev, cdtype)
+    out = []
+    for freq, q_f in zip(_freq_list(freqs), q):
+        ci = viscous_velocity(c, freq, Q, freqBase)
+        u = ky_summed_fields(ci, rho, freq, q_f[:, None], nky, cmin,
+                             config, **plane_kwargs)
+        out.append(extract(u, *rx))
+    return torch.stack(out)
+
+
+def multifreq_dpred_chunked(c, rho, freqs, q, R, config=SolverConfig(),
+                            premul=None, Q=np.inf, freqBase=0.0,
+                            chunk=16, device=DEFAULT_DEVICE, stats=None,
+                            **plane_kwargs):
+    '''
+    Host-driven production forward modelling: per frequency one prepared
+    operator (forward only) and restarted chunked solves
+    (``make_chunked_solver``, ``chunk`` iterations a restart) for the
+    whole source batch; it reuses each frequency's prepared operator
+    across all sources like the reference reuses one LU factorization
+    (zephyr/backend/distributors.py:127-173). ``c`` may be complex. The
+    working precision is that of ``q`` (complex128, else complex64).
+
+    Not differentiable (use ``multifreq_dpred`` for the autodiff path).
+    An optional ``stats`` dict receives each frequency's iteration count
+    and worst true relres. Returns the (nfreq, nsrc, nrec) data cube as
+    numpy complex128.
+    '''
+
+    dev = resolve_device(device)
+    nfreq, nsrc = q.shape[:2]
+    c = np.asarray(c)
+    config = resolve_panels(config, c)
+    cdtype = _complex_dtype(q)
+    rdtype = torch.empty((), dtype=cdtype).real.dtype
+    c_t = _field(c.astype(np.complex128), dev, cdtype)
+    rho_t = _field(rho, dev, rdtype)
+    rx = _receivers(R, dev, cdtype)
+    pm = None if premul is None else np.asarray(premul).ravel()
+    solver = make_chunked_solver(config, chunk=chunk)
+    out = np.zeros((nfreq, nsrc, rx[0].shape[0]), np.complex128)
+    iters, relres = [], []
+    for i, freq in enumerate(_freq_list(freqs)):
+        ci = viscous_velocity(c_t, freq, Q, freqBase)
+        planes = minizephyr_planes(ci, rho_t, freq,
+                                   **plane_kwargs)[None, None]
+        pplanes = minizephyr_planes(
+            shifted_velocity(ci, config.shift), rho_t, freq,
+            pml_cap=config.pml_cap, **plane_kwargs)[None, None]
+        op = prepare_operator(planes, pplanes, config, with_transpose=False)
+        b = _field(q[i], dev, cdtype)[:, None]      # (nsrc, 1, nz, nx)
+        if pm is not None:
+            b = b * complex(pm[i])
+        x, it, rr = solver(op, b)
+        del op
+        out[i] = extract(torch.conj(x[:, 0]), *rx).cpu().numpy()
+        iters.append(int(it))
+        relres.append(float(rr))
+    if stats is not None:
+        stats.update(iters=iters, relres=relres)
+    return out
+
+
+def fwi_misfit(c, dobs, *args, **kwargs):
+    '''
+    0.5 || dpred - dobs ||^2 over ``multifreq_dpred`` (same arguments
+    after ``dobs``): a real scalar tensor, differentiable w.r.t. c.
+    '''
+
+    d = multifreq_dpred(c, *args, **kwargs)
+    dobs = _field(dobs, d.device, d.dtype)
+    return 0.5 * torch.sum(torch.abs(d - dobs) ** 2)
 
 
 def freq_grid_plan(nz, nx, freqs, cmin, dx=1.0, target_gpw=None,
