@@ -36,11 +36,11 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    homogeneous and the 4-layer model with the production config, and on
    the homogeneous model with the default config (5b) (relres <= 1e-5),
    plus the homogeneous oracle errors;
-6. (after 7-11) the launch counts of every kernel: over phases 4-7
+6. (after 7-12) the launch counts of every kernel: over phases 4-7
    (K1-K5, K7 must be > 0), over phase 8 (K7, K8), over phase 9 (K1-K4,
-   K6 both variants, K7, K9), over phase 10 (K1-K4, K7) and over phase
-   11 (K1-K4, K7), each path driven with the counts set to 0 just before
-   it;
+   K6 both variants, K7, K9), over phase 10 (K1-K4, K7), over phase 11
+   (K1-K4, K7) and over phase 12 (K7, K8), each path driven with the
+   counts set to 0 just before it;
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
@@ -94,7 +94,8 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
 11. multi-frequency block modelling, multiscale inversion and 2.5D, the
    production config: (a) the bench's ``freqblock`` row (staged config
    3, bench.py:487-582): 768^2 layered, 16 frequencies on their targetGPW
-   grids (512^2 and 768^2), 96 point sources in batches of 16 through
+   grids (512^2 and 768^2), 48 point sources (the bench's 96, halved to
+   fit phase 12 in the time limit) in batches of 16 through
    make_chunked_solver(chunk=32) (the bench's 16-iteration restarts stop
    near 5e-4 on frequency 0 in both packages: printed for the first
    batch), relres <= 1e-5 on every batch, warm-up then timed, solves/s
@@ -110,10 +111,24 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    (MiniZephyr25D * q, 200x100, nky 20, error < 1e-2), then
    Helm25DProblem on the 512^2 Marmousi model with nky 20, 16 sources and
    64 receivers: dpred through the distributor chain, the forward map
-   (its iterations per ky, its peak beside that at nky 2), Jvec twice,
+   (its iterations per ky, its peak beside that at nky 2), Jvec,
    Jtvec, the dot test (<= 1e-3) and ``multifreq_dpred_25d`` (within
    1e-3 of dpred). Each prints its wall, iterations, worst relres and
    peak GB.
+12. TTI gradients (the backward of the 2x2 block solve) on the bench's
+   ``eurus`` row (512^2 hom, theta 0.3, eps 0.2, delta 0.1, TTI_OPTS,
+   complex64): (a) the backward of ``solve_batched`` (prepared
+   with_transpose=True, 16 sources as 8b draws them) for a misfit at 64
+   receivers on phase 7a's line: the forward and the backward timed
+   apart, the forward and the adjoint GMRES runs' iterations and ms an
+   iteration, the peak GB, a finite non-zero gradient; (b) the Eurus
+   Helm2DProblem + Helm2DSurvey on the same model (one frequency, phase
+   7a's 16 sources and 64 receivers): dpred, Jvec, Jtvec and their dot
+   test (within 1e-3), each call's wall, peak GB and Krylov iterations;
+   (c) its misfit_and_gradient at 256^2 at a smoothed start model
+   against data at a perturbed one, finite, non-zero and within 1e-3 of
+   Jtvec(dpred(m0) - dobs). No K8 call of the phase may copy its
+   operands.
 
 After phase 6 it prints the K6 milliseconds of one nu 3/3 iteration (9b)
 and the K8 milliseconds of one `eurus` GMRES iteration (8b): the launches
@@ -1937,10 +1952,9 @@ def middleware_25d(n, nky, card, limit=1e-3):
     frequency 1500/16, phase 7a's 16 sources and 64 receivers, the
     production config: survey.dpred() through the distributor, the
     differentiable forward map (its per-ky iterations; its peak beside
-    that of the same map at nky 2), Jvec twice (the first and the second
-    call timed apart), Jtvec and their dot test (within ``limit``), and
-    ``multifreq_dpred_25d`` on the same model, sources and receivers
-    (within ``limit`` of dpred).
+    that of the same map at nky 2), Jvec, Jtvec and their dot test
+    (within ``limit``), and ``multifreq_dpred_25d`` on the same model,
+    sources and receivers (within ``limit`` of dpred).
     """
     import torch
     from zephyr_tpu_torch.backend import MiniZephyr25D
@@ -1982,8 +1996,7 @@ def middleware_25d(n, nky, card, limit=1e-3):
     v = 10.0 * smooth_field(n, 13).ravel()
     rng = np.random.default_rng(14)
     w = rng.standard_normal(survey.nD) + 1j * rng.standard_normal(survey.nD)
-    timed('Jvec (first)', lambda: problem.Jvec(v=v), walls)
-    jv = timed('Jvec (second)', lambda: problem.Jvec(v=v), walls)
+    jv = timed('Jvec', lambda: problem.Jvec(v=v), walls)
     jtw = timed('Jtvec', lambda: problem.Jtvec(v=w), walls)
     if not (np.isfinite(jv).all() and np.isfinite(jtw).all()):
         fail('11d: non-finite Jvec or Jtvec')
@@ -2022,9 +2035,179 @@ def middleware_25d(n, nky, card, limit=1e-3):
     return out
 
 
+# --- phase 12 ------------------------------------------------------------
+
+def tti_receivers(n, nrec):
+    '''Phase 7a's receiver line at n^2: (row n/8, nrec columns).'''
+    cols = np.linspace(n // 8, 7 * n // 8, nrec).round().astype(np.int64)
+    return n // 8, cols
+
+
+def tti_solve_backward(n, nsrc, nrec, card):
+    '''
+    Phase 12a: the backward of ``solve_batched`` on the bench's `eurus`
+    row (n^2 hom, TTI_ANISO, TTI_OPTS, complex64, ``tti_sources``),
+    prepared with_transpose=True, for the receiver misfit 0.5 sum |x|^2
+    over ``tti_receivers`` (zero observed data): the forward (planes,
+    preparation, one GMRES run) and the backward (the transposed block
+    family's reduction, one adjoint GMRES run with the transpose
+    preconditioner, the block plane products and the planes' backward)
+    timed apart, each run's iterations and ms an iteration, the peak GB.
+    The gradient w.r.t. c must be finite and non-zero.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops.eurus_coeff import eurus_planes
+    from zephyr_tpu_torch.solver.helmholtz import (
+        SolverConfig, prepare_operator, shifted_velocity, solve_batched)
+    cfg = SolverConfig(**TTI_OPTS)
+    freq = 1500.0 / 16
+    c = torch.full((n, n), 1500.0, dtype=torch.float32, device=DEV,
+                   requires_grad=True)
+    rho = torch.ones((n, n), dtype=torch.float32, device=DEV)
+    aniso = {k: torch.full((n, n), v, dtype=torch.float32, device=DEV)
+             for k, v in TTI_ANISO.items()}
+    b = tti_sources(n, nsrc)
+    rz, rx = tti_receivers(n, nrec)
+    rx = torch.as_tensor(rx, device=DEV)
+    reset_peak()
+    with krylov_runs() as kr:
+        t0 = time.perf_counter()
+        cc = c.to(torch.complex64)
+        planes = eurus_planes(cc, rho, freq, **aniso)
+        pplanes = eurus_planes(shifted_velocity(cc.detach(), cfg.shift),
+                               rho, freq, pml_cap=cfg.pml_cap, **aniso)
+        op = prepare_operator(planes.detach(), pplanes, cfg,
+                              with_transpose=True)
+        x = solve_batched(op, b, cfg, planes=planes)
+        loss = 0.5 * torch.sum(torch.abs(x[:, 0, rz, rx]) ** 2)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g, = torch.autograd.grad(loss, c)
+        torch.cuda.synchronize()
+        t_bwd = time.perf_counter() - t0
+    if len(kr.iters) != 2:
+        fail('12a: %d Krylov runs, not a forward and an adjoint'
+             % len(kr.iters))
+    gnorm = float(torch.linalg.norm(g))
+    runs = {label: {'iters': it, 'seconds': sec, 'relres': rr,
+                    'ms_per_iter': 1e3 * sec / max(it, 1)}
+            for label, it, sec, rr in zip(('forward', 'adjoint'), kr.iters,
+                                          kr.seconds, kr.relres)}
+    out = {'n': n, 'nsrc': nsrc, 'nrec': nrec, 'forward_s': t_fwd,
+           'backward_s': t_bwd, 'loss': float(loss.detach()),
+           'grad_norm': gnorm, 'runs': runs, 'peak_gb': peak_gb(),
+           'backward_outside_gmres_s': t_bwd - kr.seconds[1]}
+    say('12a TTI solve backward %d^2 eurus x %d src, %d receivers: forward '
+        '(planes + prep + GMRES) %.3f s, backward %.3f s (%.3f s outside '
+        'the adjoint GMRES); loss %.6e |grad| %.6e; peak %.2f GB (card %s)'
+        % (n, nsrc, nrec, t_fwd, t_bwd, out['backward_outside_gmres_s'],
+           out['loss'], gnorm, out['peak_gb'], card))
+    for label, row in runs.items():
+        say('12a   %s GMRES(%d): %d iterations, %.3f s, %.2f ms an '
+            'iteration, worst relres %.3e' % (
+                label, cfg.gmres_restart, row['iters'], row['seconds'],
+                row['ms_per_iter'], row['relres']))
+    if not (np.isfinite(gnorm) and gnorm > 0):
+        fail('12a: |grad| %r' % gnorm)
+    for label, row in runs.items():
+        if not row['relres'] <= cfg.tol:
+            fail('12a: the %s GMRES stopped at relres %.3e > %.0e'
+                 % (label, row['relres'], cfg.tol))
+    return out
+
+
+def tti_pair(n, c, **kw):
+    '''
+    A paired Eurus Helm2DProblem and Helm2DSurvey on the card: the bench's
+    `eurus` row's anisotropy and solver options (TTI_OPTS), one frequency
+    1500/16, phase 7a's geometry.
+    '''
+    from zephyr_tpu_torch.backend import Eurus
+    from zephyr_tpu_torch.middleware import Helm2DProblem, Helm2DSurvey
+    aniso = {k: v * np.ones((n, n)) for k, v in TTI_ANISO.items()}
+    return middleware_pair(Helm2DProblem, Helm2DSurvey, n, c,
+                           [1500.0 / 16], Disc=Eurus, cPML=1e3,
+                           solverOpts=dict(TTI_OPTS), **aniso, **kw)
+
+
+def print_walls(tag, walls, card):
+    for k, row in walls.items():
+        say('%s   %s: wall %.3f s, peak %.2f GB (%.2f GB at its start), '
+            'Krylov iterations %s, seconds %s, worst relres %.3e (card %s)'
+            % (tag, k, row['wall_s'], row['peak_gb'], row['base_gb'],
+               row['iters'], ['%.3f' % t for t in row['solve_s']],
+               max(row['relres'] or [0.0]), card))
+
+
+def tti_middleware(n, card, limit=1e-3):
+    '''
+    Phase 12b: the Eurus Helm2DProblem + Helm2DSurvey on the `eurus`
+    row's model (n^2 hom, 16 sources, 64 receivers): survey.dpred(),
+    Jvec, Jtvec (one adjoint GMRES run) and their dot test (within
+    ``limit``), each call's wall, peak GB and Krylov iterations.
+    '''
+    problem, survey = tti_pair(n, 1500.0 * np.ones((n, n)))
+    walls = {}
+    d = timed('dpred', survey.dpred, walls)
+    if not (d.shape == (survey.nD,) and np.isfinite(d).all()
+            and np.abs(d).max() > 0):
+        fail('12b dpred %d^2: shape %s, finite %s'
+             % (n, d.shape, np.isfinite(d).all()))
+    err = dot_test(problem, survey, n, 17, walls, 'eurus')
+    out = {'n': n, 'nsrc': survey.nsrc, 'nrec': survey.nrec,
+           'dot_test': err, 'walls': walls}
+    say('12b Eurus problem %d^2, %d src x %d rec x 1 freq: dot test %.3e '
+        '(limit %.0e)' % (n, survey.nsrc, survey.nrec, err, limit))
+    print_walls('12b', walls, card)
+    if not err <= limit:
+        fail('12b: dot test %.3e > %.0e' % (err, limit))
+    return out
+
+
+def tti_misfit_gradient(n, card, limit=1e-3):
+    '''
+    Phase 12c: misfit_and_gradient of the Eurus problem at n^2 at a
+    smoothed start model (Gaussian, 8 cells) against data dpred made at a
+    perturbed model (1500 m/s plus a smooth seeded field of 60 m/s rms),
+    held against Jtvec of the residual dpred(m0) - dobs (the same VJP).
+    '''
+    from scipy.ndimage import gaussian_filter
+    c = 1500.0 + 60.0 * smooth_field(n, 21, width=32.0)
+    problem, survey = tti_pair(n, c)
+    walls = {}
+    dobs = timed('dobs', survey.dpred, walls)
+    m0 = gaussian_filter(c, 8.0)
+    f, g = timed('misfit_and_gradient',
+                 lambda: problem.misfit_and_gradient(m0, dobs), walls)
+    r = timed('dpred(m0)', lambda: survey.dpred(m0), walls) - dobs
+    jtr = timed('Jtvec(residual)', lambda: problem.Jtvec(m0, r), walls)
+    gnorm = float(np.linalg.norm(g))
+    diff = float(np.linalg.norm(g - jtr) / np.linalg.norm(jtr))
+    out = {'n': n, 'misfit': f, 'grad_norm': gnorm,
+           'rel_diff_vs_jtvec': diff, 'walls': walls}
+    say('12c Eurus misfit_and_gradient at %d^2 (1 freq): misfit %.6e '
+        '|grad| %.6e, against Jtvec(dpred(m0) - dobs) %.3e (limit %.0e)'
+        % (n, f, gnorm, diff, limit))
+    print_walls('12c', walls, card)
+    if not (np.isfinite(f) and np.isfinite(g).all() and gnorm > 0):
+        fail('12c: misfit %r, finite %s, |grad| %r'
+             % (f, np.isfinite(g).all(), gnorm))
+    if not diff <= limit:
+        fail('12c: the gradient differs from Jtvec by %.3e' % diff)
+    return out
+
+
+def phase12(card):
+    '''Phase 12's sub-phases at their sizes, by name, in order.'''
+    return {'backward': lambda: tti_solve_backward(512, 16, 64, card),
+            'middleware': lambda: tti_middleware(512, card),
+            'misfit_gradient': lambda: tti_misfit_gradient(256, card)}
+
+
 def phase11(card, nky=20):
     '''Phase 11's sub-phases at their sizes, by name, in order.'''
-    return {'freqblock': lambda: freqblock(768, 16, 96, card),
+    return {'freqblock': lambda: freqblock(768, 16, 48, card),
             'gradient': lambda: multifreq_gradient(512, 4, 16, 64, card),
             'multiscale': lambda: multiscale(256, card),
             'oracle_25d': lambda: oracle_25d(card),
@@ -2042,6 +2225,7 @@ MARMOUSI_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
 MIDDLEWARE_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                    'prolong_add_smooth', 'restrict', 'prolong')
 MULTIFREQ_PATH = MIDDLEWARE_PATH
+TTI_GRADIENT_PATH = TTI_PATH
 
 
 def main():
@@ -2135,12 +2319,23 @@ def main():
     mf = {name: run() for name, run in phase11(card).items()}
     torch.cuda.synchronize()
     launches['multifreq'] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    tg = {name: run() for name, run in phase12(card).items()}
+    torch.cuda.synchronize()
+    launches['tti_gradient'] = dict(ck.LAUNCHES)
+    tg['k8_copies'] = ck.COPIES['apply_block_stencil']
+    say('phase 12: K8 calls whose operands were copied: %d'
+        % tg['k8_copies'])
+    if tg['k8_copies']:
+        fail('phase 12: %d K8 calls copied their operands'
+             % tg['k8_copies'])
 
     # phase 6
     for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH),
                         ('marmousi', MARMOUSI_PATH),
                         ('middleware', MIDDLEWARE_PATH),
-                        ('multifreq', MULTIFREQ_PATH)):
+                        ('multifreq', MULTIFREQ_PATH),
+                        ('tti_gradient', TTI_GRADIENT_PATH)):
         say('launches over the %s path: %s'
             % (path, json.dumps(launches[path])))
         for name in names:
@@ -2165,6 +2360,7 @@ def main():
     say(json.dumps({'marmousi': marm, 'card': card}))
     say(json.dumps({'middleware': mw, 'card': card}))
     say(json.dumps({'multifreq': mf, 'card': card}))
+    say(json.dumps({'tti_gradient': tg, 'card': card}))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():

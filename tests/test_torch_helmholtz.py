@@ -322,12 +322,13 @@ def test_unported_configs_raise(kw):
         th.check_config(cfg)
 
 
-def test_default_config_and_block_operators_raise():
+def test_default_config_and_block_operators():
     '''
     The default SolverConfig and the 'mult' compositions run (K5, K7);
     any sweep counts >= 0 run, negative ones raise. Block (B=2, TTI)
-    operators prepare and solve forward; their backward (TTI gradients)
-    raises, and other block sizes raise.
+    operators prepare and solve forward, and their transpose
+    preconditioner (TTI gradients) makes GMRES on A^T reach tol, the
+    true residual of A^T included; other block sizes raise.
     '''
     th.check_config(th.SolverConfig())
     for kw in (dict(hybrid_comp='mult'), dict(fft_scale=1),
@@ -351,8 +352,13 @@ def test_default_config_and_block_operators_raise():
     q[0, 0, 16, 28] = 1.0
     _, it, rr = th.solve_info(op, torch.from_numpy(q), cfg)
     assert float(rr[0]) <= cfg.tol and int(it[0]) % cfg.gmres_restart == 0
-    with pytest.raises(NotImplementedError, match='TTI gradients'):
-        th._make_precond(op, cfg, transpose=True)
+    MT = th._make_precond(op, cfg, transpose=True)
+    def mvT(v):
+        return th.apply_block_stencil_fast(op.planesT, v)
+    res = th._krylov_solve(mvT, torch.from_numpy(q), MT, cfg, 2)
+    assert float(res.relres[0]) <= cfg.tol
+    assert int(res.iters[0]) % cfg.gmres_restart == 0
+    assert _rel(mvT(res.x).numpy(), q) <= cfg.tol
     # the plain multigrid preconditioner with the fused kernels is ported
     _, mg = _configs(precond='mg', tol=1e-7)
     op = _torch_op(_model('hom'), mg)

@@ -4,8 +4,8 @@ tests/test_torch_middleware.py, whose helpers, configs and tolerances it
 uses, so that the two files' JAX compiles run on separate test workers):
 Helm2DViscoProblem and Helm2DViscoMultiGridProblem against zephyr_tpu
 under the default and the production configs (dpred and Jtvec, rel
-1e-6), and the Eurus problem's Jvec at 24x20 (rel 1e-6). CPU,
-complex128.
+1e-6), and the Eurus problem's Jvec at 24x20 (rel 1e-6) with its Jtvec
+by the adjoint dot test (1e-8). CPU, complex128.
 '''
 
 import numpy as np
@@ -49,7 +49,9 @@ def test_eurus_jvec_matches_jax():
     The Eurus (TTI) problem's Jvec at 24x20, one frequency (the block
     solve's forward-mode rule, dA x through the block apply; the V-cycle
     preconditioner with Jacobi smoothing keeps the JAX side quick to
-    build); its Jtvec raises the TTI-gradient message.
+    build); its Jtvec (the block solve's backward) passes the adjoint dot
+    test against that Jvec, 1e-8 (tests/test_torch_tti_gradient.py holds
+    it against the JAX package).
     '''
     nz, nx = 24, 20
     sc = _config(nz=nz, nx=nx, c=2000. * np.ones((nz, nx)), Disc=jb.Eurus,
@@ -66,6 +68,9 @@ def test_eurus_jvec_matches_jax():
     v = np.random.default_rng(8).standard_normal(nz * nx)
     _, ref = jax.jvp(jp._dpred_fn(), (jnp.asarray(jp.baseVelocity),),
                      (jnp.asarray(v.reshape(nz, nx)),))
-    assert _rel(tp.Jvec(v=v), np.asarray(ref).ravel()) < 1e-6
-    with pytest.raises(NotImplementedError, match='8b'):
-        tp.Jtvec(v=np.ones(ts.nD, complex))
+    jv = tp.Jvec(v=v)
+    assert _rel(jv, np.asarray(ref).ravel()) < 1e-6
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal(ts.nD) + 1j * rng.standard_normal(ts.nD)
+    lhs = np.real(np.vdot(w, jv))
+    assert abs(lhs - np.dot(tp.Jtvec(v=w), v)) / abs(lhs) < 1e-8

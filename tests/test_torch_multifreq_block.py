@@ -6,7 +6,7 @@ against zephyr_tpu.parallel on the same inputs, on the CPU in complex128,
 at 48x40 with 2 frequencies, 3 point sources and 4 receivers (two taps
 each), the production solver config (cut to three multigrid levels by
 mg_min_size=10) at tol 1e-10; plus the Eurus (B=2) forward and its
-refused gradient, and the refusal of the CPU without ``device='cpu'``.
+gradient, and the refusal of the CPU without ``device='cpu'``.
 
 The JAX references come from one compiled program: the JAX package's
 operators (``build_multifreq_ops``, carried to the port by
@@ -185,13 +185,16 @@ def test_fwi_misfit_value_and_gradient_match_jax():
     assert _rel(g.numpy(), g_ref) < TOL
 
 
-def test_eurus_forward_and_refused_gradient():
+def test_eurus_forward_and_gradient():
     '''
-    With eurus_params the map solves the 2x2 block (TTI) system, forward
-    only: its data equal the port's Eurus discretization's wavefields
-    through the same receivers, and a gradient request raises the
-    ROADMAP 8b message.
+    With eurus_params the map solves the 2x2 block (TTI) system: its data
+    equal the port's Eurus discretization's wavefields through the same
+    receivers, and the reverse-mode gradient of the data misfit (GMRES
+    transpose solves) equals the port's forward-mode derivative in a
+    seeded direction, rel 1e-6 (tests/test_torch_tti_gradient.py holds
+    it against jax.grad).
     '''
+    import torch.autograd.forward_ad as fwAD
     n_z, n_x, freq = 24, 20, 200.
     c = 2000. * np.ones((n_z, n_x))
     aniso = {k: v * np.ones((n_z, n_x))
@@ -201,20 +204,25 @@ def test_eurus_forward_and_refused_gradient():
     R = np.zeros((2, n_z * n_x), np.complex128)
     R[0, 6 * n_x + 14] = R[1, 16 * n_x + 14] = 1.
     cfg = dict(tol=1e-10, mg_min_size=8)
-    d = tmf.multifreq_dpred(c, np.ones((n_z, n_x)), [freq], q, R,
-                            config=SolverConfig(**cfg),
-                            eurus_params=dict(aniso, cPML=1e3),
-                            device='cpu', nPML=6)
+    kw = dict(config=SolverConfig(**cfg), eurus_params=dict(aniso, cPML=1e3),
+              device='cpu', nPML=6)
+    d = tmf.multifreq_dpred(c, np.ones((n_z, n_x)), [freq], q, R, **kw)
     u = Eurus(dict(aniso, c=c, rho=1., nx=n_x, nz=n_z, freq=freq, nPML=6,
                    cPML=1e3, solverOpts=cfg, device='cpu')) \
         * q[0, 0].reshape(-1, 1)
     assert _rel(d.numpy()[0, 0], R @ u[:, 0]) < TOL
+    dobs = 0.5 * d.numpy()
     ct = torch.tensor(c, requires_grad=True)
-    with pytest.raises(NotImplementedError, match='8b'):
-        tmf.multifreq_dpred(ct, np.ones((n_z, n_x)), [freq], q, R,
-                            config=SolverConfig(**cfg),
-                            eurus_params=dict(aniso, cPML=1e3),
-                            device='cpu', nPML=6)
+    f = tmf.fwi_misfit(ct, dobs, np.ones((n_z, n_x)), [freq], q, R, **kw)
+    g, = torch.autograd.grad(f, ct)
+    assert g.shape == (n_z, n_x) and bool(torch.isfinite(g).all())
+    dc = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (n_z, n_x)))
+    with fwAD.dual_level():
+        f_fw = tmf.fwi_misfit(fwAD.make_dual(torch.tensor(c), dc), dobs,
+                              np.ones((n_z, n_x)), [freq], q, R, **kw)
+        df = float(fwAD.unpack_dual(f_fw).tangent)
+    assert abs(float(torch.sum(g * dc)) - df) / abs(df) < TOL
 
 
 def test_entry_points_refuse_the_cpu_by_default(monkeypatch):

@@ -450,9 +450,8 @@ class HelmBaseProblem(BaseModelDependent, BaseSCCache):
                 pplanes = plane_fn(
                     shifted_velocity(ci.detach(), cfg.shift), rhos[i],
                     freq=f, pml_cap=cfg.pml_cap, **kw)
-                op = prepare_operator(
-                    planes.detach(), pplanes, cfg,
-                    with_transpose=needs_grad and not is_eurus)
+                op = prepare_operator(planes.detach(), pplanes, cfg,
+                                      with_transpose=needs_grad)
                 x = solve_batched(op, bs[i], cfg, planes=planes)
                 u = torch.conj(x[:, 0].reshape((x.shape[0], nz_i * nx_i)))
                 panels.append(rxs[i].project(u))

@@ -138,6 +138,20 @@ def plane_products(w, x):
                         for dz, dx in OFFSETS])
 
 
+def block_plane_products(w, x):
+    '''
+    G[i, j, k] = sum_r w_r[i] x_r[j][. + s_k] for w, x (R, B, nz, nx) ->
+    (B, B, 9, nz, nx): ``plane_products`` per block, the derivative of
+    sum_r sum_i w_r[i] (A x_r)[i] w.r.t. the block planes of A (the JAX
+    package takes it by jax.vjp of ``apply_block_stencil``).
+    '''
+
+    B = w.shape[-3]
+    return torch.stack([torch.stack([plane_products(w[:, i], x[:, j])
+                                     for j in range(B)])
+                        for i in range(B)])
+
+
 def transpose_block_planes(planes):
     'Planes of the transposed block operator (swap blocks + per-block T).'
 

@@ -39,10 +39,9 @@ from ..ops.eurus_coeff import eurus_planes
 from ..ops.kaiser import extract, inject, pad_stamps
 from ..ops.minizephyr_coeff import minizephyr_planes
 from ..ops.stencil import plane_products, transpose_block_planes
-from ..solver.helmholtz import (TTI_GRADIENTS, SolverConfig,
-                                make_chunked_solver, prepare_operator,
-                                resolve_panels, shifted_velocity,
-                                solve_batched)
+from ..solver.helmholtz import (SolverConfig, make_chunked_solver,
+                                prepare_operator, resolve_panels,
+                                shifted_velocity, solve_batched)
 
 
 def viscous_velocity(c, freq, Q=np.inf, freqBase=0.0):
@@ -129,8 +128,10 @@ def build_multifreq_ops(c, rho, freqs, config=SolverConfig(), ky=0.0,
         rho: (nz, nx) density
         freqs: (nfreq,) frequencies
         eurus_params: None for MiniZephyr; dict(theta, eps, delta, cPML)
-            for the Eurus TTI operator, forward only (no transposed parts;
-            a gradient request raises: ROADMAP item 8b)
+            for the Eurus TTI operator (its transposed parts, which the
+            backward needs, only when ``c`` or ``rho`` requires grad with
+            autograd on: the numbers are the same, and the transposed
+            line states cost memory)
         device: the card unless 'cpu' is asked for
         dtype: complex64 or complex128 (default: complex64 on the card,
             complex128 on the CPU)
@@ -145,9 +146,9 @@ def build_multifreq_ops(c, rho, freqs, config=SolverConfig(), ky=0.0,
     rdtype = torch.empty((), dtype=cdtype).real.dtype
     c = _field(c, dev, cdtype)
     rho = _field(rho, dev, rdtype)
+    with_transpose = eurus_params is None or (
+        (c.requires_grad or rho.requires_grad) and torch.is_grad_enabled())
     if eurus_params is not None:
-        if c.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(TTI_GRADIENTS)
         eurus_params = {k: (v if k == 'cPML' else _field(v, dev, rdtype))
                         for k, v in eurus_params.items()}
 
@@ -167,7 +168,7 @@ def build_multifreq_ops(c, rho, freqs, config=SolverConfig(), ky=0.0,
             pplanes = eurus_planes(csh, rho, freq, pml_cap=config.pml_cap,
                                    **eurus_params, **plane_kwargs)
         ops.append(prepare_operator(planes, pplanes, config,
-                                    with_transpose=eurus_params is None))
+                                    with_transpose=with_transpose))
     return ops
 
 

@@ -1,7 +1,7 @@
 '''
 The zephyr_tpu_torch Helmholtz solve: the port of
-``zephyr_tpu.solver.helmholtz`` for scalar (B=1) operators and, forward
-only, for the 2x2 block (B=2) Eurus TTI operators.
+``zephyr_tpu.solver.helmholtz`` for scalar (B=1) operators and for the
+2x2 block (B=2) Eurus TTI operators.
 
 A prepared operator (``prepare_operator``) holds the coefficient planes,
 the multigrid hierarchy of the complex-shifted operator, the precomputed
@@ -37,11 +37,13 @@ residual, K7 for the transfers, plain-torch block PCR for the lines).
 
 ``solve``/``solve_batched`` are differentiable (``torch.autograd``) with
 respect to the planes and the right-hand side, as
-``lax.custom_linear_solve`` makes them in the JAX package: forward mode
-(``torch.autograd.forward_ad``) runs one more solve with the same
-operator; the backward runs one transpose solve with the transpose
+``lax.custom_linear_solve`` makes them in the JAX package, for scalar and
+block operators: forward mode (``torch.autograd.forward_ad``) runs one
+more solve with the same operator; the backward runs one transpose solve
+(BiCGStab, or GMRES for a block operator) with the transpose
 preconditioner (the fused cycle falls back to 'mult' there, which runs
-K7). The backward of a block (TTI) solve is not ported yet and raises.
+K7; a block operator's is 'mult' from the transposed block stratified
+family, K8 for the residuals and the transposed line-smoothed V-cycle).
 
 Configurations whose path needs a part that is not ported yet raise
 NotImplementedError naming it, on every device.
@@ -52,7 +54,7 @@ from typing import NamedTuple, Any
 import numpy as np
 import torch
 
-from ..ops.stencil import (apply_block_stencil_fast, plane_products,
+from ..ops.stencil import (apply_block_stencil_fast, block_plane_products,
                            transpose_block_planes)
 from .krylov import (bicgstab, fgmres, fgmres_cycle, gmres, gmres_cycle,
                      _norm)
@@ -64,12 +66,8 @@ from .stratified import (stratified_coeffs, pcr_precompute,
                          stratified_apply, transpose_pcr,
                          stratified_coeffs_panels, panel_layout,
                          panel_solver, stratified_coeffs_block,
-                         pcr_precompute_block, stratified_apply_block)
-
-#: the ROADMAP item that ports the backward of block (TTI) solves
-TTI_GRADIENTS = ('TTI gradients (the transposed block stratified solve '
-                 'and block plane products) are not ported yet: ROADMAP '
-                 'Queue 1, item 8b')
+                         pcr_precompute_block, stratified_apply_block,
+                         transpose_pcr_block)
 
 
 class SolverConfig(NamedTuple):
@@ -317,15 +315,13 @@ def _make_precond(op, config, transpose=False):
     With ``transpose=True`` the same construction from the transposed
     parts, P^T + V^T (I - A^T P^T): a preconditioner FOR the transposed
     operator (the JAX package's choice; the fused cycle falls back to
-    'mult'). P^T = F T^{-T} F^{-1}, the transposed tridiagonal family
-    reduced once here in full precision. Block operators have no
-    transpose preconditioner yet (TTI gradients).
+    'mult'). P^T = F T^{-T} F^{-1}, the transposed tridiagonal (or, for a
+    block operator, block-tridiagonal) family reduced once here in full
+    precision.
     '''
 
     is_block = op.planes.shape[0] == 2
     check_config(config, op.planes.shape[0])
-    if transpose and is_block:
-        raise NotImplementedError(TTI_GRADIENTS)
     hier = op.hierT if transpose else op.hier
     if hier is None:
         raise ValueError('operator was prepared with with_transpose=False: '
@@ -342,7 +338,9 @@ def _make_precond(op, config, transpose=False):
         return mg
 
     planes = (op.planesT if transpose else op.planes).detach()
-    strat = transpose_pcr(op.strat) if transpose else op.strat
+    strat = op.strat
+    if transpose:
+        strat = (transpose_pcr_block if is_block else transpose_pcr)(strat)
     nzf, nxf = planes.shape[-2:]
     # the spectral solve runs on the fine grid or (fft_scale=2) the
     # Galerkin-coarsened one; panel bands are P*W wide, so key on nz
@@ -351,7 +349,7 @@ def _make_precond(op, config, transpose=False):
 
     if is_block:
         def P0(r):
-            return stratified_apply_block(strat, r)
+            return stratified_apply_block(strat, r, transpose=transpose)
     elif config.strat_panels > 1:
         P0 = panel_solver(strat, spec_nx, config.strat_panels,
                           config.strat_overlap, transpose=transpose,
@@ -450,9 +448,8 @@ class _LinearSolve(torch.autograd.Function):
 
     Reverse mode (``backward``): torch hands g = dL/d conj(x); the
     cotangent of b is w = A^{-H} g = conj(A^{-T} conj(g)), one transpose
-    solve with the transpose preconditioner, and that of the planes is
-    -sum_r w_r[i] conj(x_r[i + s_k]). Block (TTI) operators have no
-    backward yet.
+    solve with the transpose preconditioner, and that of the block planes
+    is -sum_r w_r[i] conj(x_r[j][. + s_k]) (``block_plane_products``).
 
     The solve reads ``op`` (prepared from detached planes); ``planes`` is
     the differentiable input that carries the derivatives.
@@ -480,18 +477,15 @@ class _LinearSolve(torch.autograd.Function):
     def backward(ctx, g):
         x, = ctx.saved_tensors
         op, config = ctx.op, ctx.config
-        if op.planes.shape[0] != 1:
-            raise NotImplementedError('backward of a block (B=2) solve: '
-                                      + TTI_GRADIENTS)
         MT = _make_precond(op, config, transpose=True)
         planesT = transpose_block_planes(op.planes.detach())
         # conj_physical: the kernels read raw memory, never a conj view
         w = _krylov_solve(lambda v: apply_block_stencil_fast(planesT, v),
                           g.conj_physical(), MT, config,
-                          1).x.conj_physical()
+                          op.planes.shape[0]).x.conj_physical()
         gp = None
         if ctx.needs_input_grad[0]:
-            gp = -plane_products(w[:, 0], x[:, 0].conj())[None, None]
+            gp = -block_plane_products(w, x.conj())
         gb = w if ctx.needs_input_grad[1] else None
         return gp, gb, None, None
 
@@ -500,7 +494,7 @@ def solve_batched(op, b, config=SolverConfig(), planes=None):
     '''
     Solve A x = b for a batch b (R, B, nz, nx) to ``config.tol``;
     differentiable in forward and reverse mode with respect to the planes
-    and ``b`` (reverse mode for scalar operators, and it needs an
+    and ``b``, for scalar and block operators (reverse mode needs an
     operator prepared ``with_transpose=True``). The planes that carry the
     derivatives are ``op.planes``, or ``planes`` when given: the same
     values, for an operator prepared from detached planes (the kernels

@@ -1,8 +1,8 @@
 '''
 Stratified (depth-varying) spectral interior solve for the hybrid
 Helmholtz preconditioner: the port of ``zephyr_tpu.solver.stratified``
-for scalar (B=1) operators with its transpose, and the forward block
-(B=2, TTI) family.
+for scalar (B=1) and 2x2 block (B=2, TTI) operators, each with its
+transpose.
 
 Per-ROW mean stencil coefficients over an interior x-window, an FFT in x
 (``torch.fft``, cuFFT on the card), and for every cross-line wavenumber
@@ -37,9 +37,9 @@ The block family (``stratified_coeffs_block``, ``pcr_precompute_block``,
 by the same reduction with pointwise 2x2 block inverses; it runs as
 plain torch on every device, as it does in the JAX package, and also
 serves the multigrid line smoother (``multigrid._line_pcr_states``).
-
-Not ported yet (raises NotImplementedError): the transposed block family
-(TTI gradients).
+Its transposed family (``transpose_pcr_block``, the transpose solves of
+TTI gradients) is reduced from the stored coefficients in full precision,
+like the scalar one.
 '''
 
 from typing import NamedTuple, Any
@@ -872,17 +872,45 @@ def stratified_coeffs_block(planes, precond_planes, shift, fft_shift):
     return tuple(bands)
 
 
+def transpose_strat_block(ldu):
+    '''
+    Block-tridiagonal coefficients of the transposed block family:
+    L_T(z) = U(z-1)^T, D_T = D^T, U_T(z) = L(z+1)^T (block transposes
+    throughout), from ``ldu`` (3, 2, 2, nz, nx).
+    '''
+
+    L, D, U = ldu[0], ldu[1], ldu[2]
+    return (_bshift(U, -1).transpose(0, 1), D.transpose(0, 1),
+            _bshift(L, +1).transpose(0, 1))
+
+
+def transpose_pcr_block(strat, delta=1e-6):
+    '''
+    The RHS-independent reduction of the transposed block family of a
+    StratPCRBlock, from its stored coefficients and in full precision
+    (complex64 stays complex64, no bf16 packing): the arithmetic of the
+    JAX package's transpose solve, which reduces the same family on every
+    application.
+    '''
+
+    return pcr_precompute_block(*transpose_strat_block(strat.ldu),
+                                delta=delta, quantize=False)
+
+
 def stratified_apply_block(strat, r, transpose=False):
     '''
     Apply the block stratified interior inverse to r (R, 2, nz, nx):
-    x-FFT, the precomputed block PCR sweep in z, inverse x-FFT. The
-    transposed family (the TTI backward) is not ported yet.
+    x-FFT, the precomputed block PCR sweep in z, inverse x-FFT.
+
+    With ``transpose=True``, ``strat`` is the transposed family
+    (``transpose_pcr_block``) and this applies the algebraic transpose
+    P^T = F T^{-T} F^{-1} (the x-DFT matrix is symmetric): inverse x-FFT,
+    the full-precision block sweep, x-FFT. Plain torch on every device,
+    as in the JAX package.
     '''
 
     if transpose:
-        raise NotImplementedError(
-            'stratified_apply_block(transpose=True): the transposed block '
-            'family belongs to TTI gradients, not ported yet (ROADMAP '
-            'Queue 1, item 8b)')
+        xhat = pcr_apply_block(strat, torch.fft.ifft(r, dim=-1))
+        return torch.fft.fft(xhat, dim=-1)
     rhat = torch.fft.fft(r, dim=-1)
     return torch.fft.ifft(pcr_apply_block(strat, rhat), dim=-1)
