@@ -26,7 +26,9 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    size of the 2048^2 hierarchy at R=16 and R=1; K8 at 2048^2 x 16, at
    512^2 x 16 (the `eurus` row's fine level) and the other level sizes
    of its hierarchy (256^2 to 32^2) x 16, at R=1 at 2048^2 and 512^2,
-   and at 37x53 x 3;
+   and at 37x53 x 3; K2 (1 and 2 sweeps), K4 and K9 again at 2048^2 x 16
+   and 37x53 x 3 under the closure mask of an overlapped-Schwarz slab
+   (columns 0..16 and nx-17..nx-1 zeroed on top of the ring);
 4. the forward-modelling oracle: ``MiniZephyr(config) * q`` on the card
    with the production solver options (4) and with no solverOpts, the
    default SolverConfig (4b), against AnalyticalHelmholtz
@@ -36,11 +38,12 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    homogeneous and the 4-layer model with the production config, and on
    the homogeneous model with the default config (5b) (relres <= 1e-5),
    plus the homogeneous oracle errors;
-6. (after 7-12) the launch counts of every kernel: over phases 4-7
+6. (after 7-13) the launch counts of every kernel: over phases 4-7
    (K1-K5, K7 must be > 0), over phase 8 (K7, K8), over phase 9 (K1-K4,
    K6 both variants, K7, K9), over phase 10 (K1-K4, K7), over phase 11
-   (K1-K4, K7) and over phase 12 (K7, K8), each path driven with the
-   counts set to 0 just before it;
+   (K1-K4, K7), over phase 12 (K7, K8), over 13a-c (K1, K2, K4, K7),
+   over 13d (K8) and over 13e (K1-K5), each path driven with the counts
+   set to 0 just before it;
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
@@ -129,6 +132,24 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    against data at a perturbed one, finite, non-zero and within 1e-3 of
    Jtvec(dpred(m0) - dobs). No K8 call of the phase may copy its
    operands.
+13. the solver configurations beside the production one, and the CLI:
+   (a) phase 5's 2048^2 hom x 16 row (warm-up then timed, relres <= 1e-5,
+   the oracle error < 1e-2) with fft_mode='2d' (the fused cycle with the
+   2D-FFT symbol solve at level 1) and with hybrid_comp='add'
+   (stratified); (b) the same with mg_coarse='iterative' (its ms an
+   iteration beside phase 5's: the coarse loop makes no host sync); (c)
+   the production row as one overlapped-Schwarz slab holds it: the
+   planes grown by 16 mirrored columns a side, prepared with the slab's
+   closure mask as interior_mask (relres <= 1e-5); (d) the `eurus` row
+   (512^2 x 16, TTI_OPTS) with fft_mode='2d', chunked and stopped after
+   8 chunks (finite, below its start), then the backward of solve_batched at 256^2 (GMRES capped at
+   200; a finite, non-zero gradient); (e) the CLI (``cli.main``): an
+   OMEGA project written under build/ (the 4-layer model at 2048^2, 2
+   frequencies at 16 and 8 cells per wavelength, 16 sources, 64
+   receivers) through ``model`` (its .utout file must read back as the
+   returned data), ``inspect``, and ``migrate`` and ``invert --maxiter
+   1`` on a 256^2 project (finite outputs). Each run prints its
+   iterations, worst relres, wall, solves/s and peak GB.
 
 After phase 6 it prints the K6 milliseconds of one nu 3/3 iteration (9b)
 and the K8 milliseconds of one `eurus` GMRES iteration (8b): the launches
@@ -136,6 +157,8 @@ per iteration at each level size, counted in those runs, times that
 level's phase-3 time. It prints one JSON line of per-kernel results, the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}. It
 needs one CUDA device and exits non-zero without one.
+``tools/time_port_configs.py`` runs phase 3's slab-mask checks and
+phase 13 alone.
 '''
 
 import json
@@ -713,6 +736,7 @@ def check_kernels():
               'K3_ms_hom': 2 * results['pcr_sweep']['ms'],
               'K3_ms_marmousi': 2 * results['pcr_sweep width=1536']['ms'],
               'K3_ms_default': 2 * results['pcr_sweep nz=2048']['ms']}
+    check_slab_masks(gen)
     per_it['K2_K3_ms_hom'] = k2 + per_it['K3_ms_hom']
     per_it['K2_K3_ms_marmousi'] = k2 + per_it['K3_ms_marmousi']
     results['per_iteration'] = per_it
@@ -723,6 +747,61 @@ def check_kernels():
            per_it['K2_K3_ms_marmousi'], per_it['K3_ms_marmousi'],
            per_it['K3_ms_default']))
     return results
+
+
+def slab_mask(nz, nx, overlap=16):
+    '''
+    The closure mask of an overlapped-Schwarz slab with x-overlap
+    ``overlap`` (zephyr_tpu/parallel/spatial.py:305-316): columns
+    0..overlap and nx-1-overlap..nx-1 zero, float32 on the host.
+    '''
+    m = np.ones((nz, nx), np.float32)
+    m[:, :overlap + 1] = 0.
+    m[:, nx - overlap - 1:] = 0.
+    return m
+
+
+def check_slab_masks(gen):
+    '''
+    Phase 3, masked: K2 (1 and 2 sweeps), K4 and K9 against their twins
+    under the ring mask times a slab's closure mask (zeros inside the
+    grid, where K2's restriction stage and every kernel's per-point mask
+    read them), at 2048^2 x 16 and at 37x53 x 3; the limit is KERNEL_TOL
+    relative to the twin's largest magnitude.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    from zephyr_tpu_torch.ops import stencil
+    worst = 0.0
+    for (nz, nx, R) in ((2048, 2048, 16), (37, 53, 3)):
+        planes, D, ring, field = level_inputs(nz, nx, R, gen)
+        mask = ring * torch.as_tensor(slab_mask(nz, nx), device=DEV)
+        b, u = field(R, nz, nx), field(R, nz, nx)
+        ec = field(R, (nz + 1) // 2, (nx + 1) // 2)
+        desc = '%dx%d R=%d slab mask' % (nz, nx, R)
+        checks = [('presmooth_restrict', ' nsweeps=2',
+                   ck.presmooth_restrict(planes, D, mask, b, 2),
+                   stencil._ps2rr_ref(planes, D, mask, b)),
+                  ('presmooth_restrict', ' nsweeps=1',
+                   ck.presmooth_restrict(planes, D, mask, b, 1),
+                   stencil._ps1rr_ref(planes, D, mask, b)),
+                  ('prolong_add_smooth', '',
+                   ck.prolong_add_smooth(planes, D, mask, b, u, ec),
+                   stencil._pas_ref(planes, D, mask, b, u, ec)),
+                  ('presmooth_residual', '',
+                   ck.presmooth_residual(planes, D, mask, b),
+                   stencil._ps2r_ref(planes, D, mask, b))]
+        for name, extra, out, ref in checks:
+            rel, abs_err = rel_err(out, ref)
+            worst = max(worst, rel)
+            say('  %-19s %-38s rel err %.3e  abs err %.3e'
+                % (name, desc + extra, rel, abs_err))
+            if not rel <= KERNEL_TOL:
+                fail('%s disagrees with its twin at %s: %.3e > %.0e'
+                     % (name, desc + extra, rel, KERNEL_TOL))
+        del planes, D, ring, mask, b, u, ec, checks
+        torch.cuda.empty_cache()
+    return worst
 
 
 # --- phases 4-5 -----------------------------------------------------------
@@ -838,14 +917,15 @@ MEDIA = {'hom': lambda n: np.full((n, n), 1500.0, np.float32),
          'marmousi': lambda n: marmousi_c(n)}
 
 
-def headline(n, nsrc, medium, card, opts=PRODUCTION):
+def headline(n, nsrc, medium, card, opts=PRODUCTION, label=None):
     '''
-    Phase 5 (and 9a): prepare_operator + make_chunked_solver on the card
-    at n^2 with nsrc point sources and the given solver options (None: the
-    default SolverConfig), the auto x-panel rule applied; a warm-up solve,
-    then a timed one, which must reach tol. Returns a dict of the run's
-    numbers (with the chunk trace and the launches per iteration) and the
-    prepared operator.
+    Phase 5 (and 9a, 13a-b): prepare_operator + make_chunked_solver on
+    the card at n^2 with nsrc point sources and the given solver options
+    (None: the default SolverConfig; ``label`` names them in the printed
+    line), the auto x-panel rule applied; a warm-up solve, then a timed
+    one, which must reach tol. Returns a dict of the run's numbers (with
+    the chunk trace and the launches per iteration) and the prepared
+    operator.
     '''
     import torch
     from zephyr_tpu_torch.ops import cuda_kernels as ck
@@ -855,7 +935,7 @@ def headline(n, nsrc, medium, card, opts=PRODUCTION):
     cval = 1500.0
     freq = cval / 16.0
     c_np = MEDIA[medium](n)
-    cname = 'default' if opts is None else 'production'
+    cname = label or ('default' if opts is None else 'production')
     cfg = resolve_panels(resolve_solver_config(opts, torch.complex64), c_np)
     reset_peak()
     op, t_prep = scalar_operator(c_np, cfg, freq)
@@ -880,12 +960,14 @@ def headline(n, nsrc, medium, card, opts=PRODUCTION):
     out = {'medium': medium, 'config': cname, 'n': n, 'nsrc': nsrc,
            'panels': cfg.strat_panels, 'iters': iters, 'relres': relres,
            'wall_s': wall, 'solves_per_s': nsrc / wall, 'prep_s': t_prep,
+           'ms_per_iter': 1e3 * wall / max(iters, 1),
            'warmup_iters': iters0, 'peak_gb': peak_gb(),
            'trace': compact_trace(trace), 'launches_per_iter': per_iter}
     say('headline %s %s %d^2 x %d src (%d panels): iters %d  relres %.3e  '
-        'wall %.3f s  %.3f solves/s  (prep %.2f s; peak %.2f GB; card %s)'
+        'wall %.3f s  %.3f solves/s  %.2f ms an iteration  (prep %.2f s; '
+        'peak %.2f GB; card %s)'
         % (medium, cname, n, nsrc, cfg.strat_panels, iters, relres, wall,
-           nsrc / wall, t_prep, out['peak_gb'], card))
+           nsrc / wall, out['ms_per_iter'], t_prep, out['peak_gb'], card))
 
     if medium == 'hom':
         # interior-window oracle of one source outside the window
@@ -1163,11 +1245,13 @@ def tti_sources(n, nsrc):
     return b
 
 
-def tti_bench(n, nsrc, medium, card, warm=True, max_chunks=None):
+def tti_bench(n, nsrc, medium, card, warm=True, max_chunks=None,
+              opts=None, label=None):
     '''
-    Phase 8b/8c: the bench's eurus / eurus_layered row (bench.py:425-484)
-    through the port: prepare_operator + make_chunked_solver(chunk=16),
-    the production config with gmres_restart=20 and mg_nu1=mg_nu2=1,
+    Phase 8b/8c (and 13d): the bench's eurus / eurus_layered row
+    (bench.py:425-484) through the port: prepare_operator +
+    make_chunked_solver(chunk=16), the production config with
+    gmres_restart=20 and mg_nu1=mg_nu2=1 (or ``opts``, named ``label``),
     a warm-up solve (``warm``) then a timed one of at most ``max_chunks``
     chunks (default: maxiter's). Returns the run's numbers, the chunk
     residual trace and the K8 launches per GMRES iteration of the timed
@@ -1177,7 +1261,7 @@ def tti_bench(n, nsrc, medium, card, warm=True, max_chunks=None):
     from zephyr_tpu_torch.ops import cuda_kernels as ck
     from zephyr_tpu_torch.solver.helmholtz import (
         SolverConfig, prepare_operator, make_chunked_solver)
-    cfg = SolverConfig(**TTI_OPTS)
+    cfg = SolverConfig(**(opts or TTI_OPTS))
     c_np = None if medium == 'hom' else layered_c(n)
     reset_peak()
     t0 = time.perf_counter()
@@ -1202,7 +1286,8 @@ def tti_bench(n, nsrc, medium, card, warm=True, max_chunks=None):
     wall = time.perf_counter() - t0
     per_iter = {k: (ck.LAUNCHES[k] - before[k]) / max(iters, 1)
                 for k in ('apply_block_stencil', 'restrict', 'prolong')}
-    out = {'row': 'eurus' if medium == 'hom' else 'eurus_layered',
+    out = {'row': ('eurus' if medium == 'hom' else 'eurus_layered')
+           + (' ' + label if label else ''),
            'n': n, 'nsrc': nsrc, 'iters': iters, 'relres': relres,
            'reached_1e-5': bool(relres <= 1e-5), 'wall_s': wall,
            'ms_per_iter': 1e3 * wall / max(iters, 1),
@@ -2043,7 +2128,7 @@ def tti_receivers(n, nrec):
     return n // 8, cols
 
 
-def tti_solve_backward(n, nsrc, nrec, card):
+def tti_solve_backward(n, nsrc, nrec, card, opts=None, tag='12a'):
     '''
     Phase 12a: the backward of ``solve_batched`` on the bench's `eurus`
     row (n^2 hom, TTI_ANISO, TTI_OPTS, complex64, ``tti_sources``),
@@ -2053,13 +2138,15 @@ def tti_solve_backward(n, nsrc, nrec, card):
     family's reduction, one adjoint GMRES run with the transpose
     preconditioner, the block plane products and the planes' backward)
     timed apart, each run's iterations and ms an iteration, the peak GB.
-    The gradient w.r.t. c must be finite and non-zero.
+    The gradient w.r.t. c must be finite and non-zero. With ``opts`` (in
+    place of TTI_OPTS; phase 13d) the GMRES runs need not reach tol: they
+    must end finite and below their starting residual.
     '''
     import torch
     from zephyr_tpu_torch.ops.eurus_coeff import eurus_planes
     from zephyr_tpu_torch.solver.helmholtz import (
         SolverConfig, prepare_operator, shifted_velocity, solve_batched)
-    cfg = SolverConfig(**TTI_OPTS)
+    cfg = SolverConfig(**(opts or TTI_OPTS))
     freq = 1500.0 / 16
     c = torch.full((n, n), 1500.0, dtype=torch.float32, device=DEV,
                    requires_grad=True)
@@ -2087,8 +2174,8 @@ def tti_solve_backward(n, nsrc, nrec, card):
         torch.cuda.synchronize()
         t_bwd = time.perf_counter() - t0
     if len(kr.iters) != 2:
-        fail('12a: %d Krylov runs, not a forward and an adjoint'
-             % len(kr.iters))
+        fail('%s: %d Krylov runs, not a forward and an adjoint'
+             % (tag, len(kr.iters)))
     gnorm = float(torch.linalg.norm(g))
     runs = {label: {'iters': it, 'seconds': sec, 'relres': rr,
                     'ms_per_iter': 1e3 * sec / max(it, 1)}
@@ -2098,22 +2185,25 @@ def tti_solve_backward(n, nsrc, nrec, card):
            'backward_s': t_bwd, 'loss': float(loss.detach()),
            'grad_norm': gnorm, 'runs': runs, 'peak_gb': peak_gb(),
            'backward_outside_gmres_s': t_bwd - kr.seconds[1]}
-    say('12a TTI solve backward %d^2 eurus x %d src, %d receivers: forward '
+    say('%s TTI solve backward %d^2 eurus x %d src, %d receivers: forward '
         '(planes + prep + GMRES) %.3f s, backward %.3f s (%.3f s outside '
         'the adjoint GMRES); loss %.6e |grad| %.6e; peak %.2f GB (card %s)'
-        % (n, nsrc, nrec, t_fwd, t_bwd, out['backward_outside_gmres_s'],
-           out['loss'], gnorm, out['peak_gb'], card))
+        % (tag, n, nsrc, nrec, t_fwd, t_bwd,
+           out['backward_outside_gmres_s'], out['loss'], gnorm,
+           out['peak_gb'], card))
     for label, row in runs.items():
-        say('12a   %s GMRES(%d): %d iterations, %.3f s, %.2f ms an '
+        say('%s   %s GMRES(%d): %d iterations, %.3f s, %.2f ms an '
             'iteration, worst relres %.3e' % (
-                label, cfg.gmres_restart, row['iters'], row['seconds'],
+                tag, label, cfg.gmres_restart, row['iters'], row['seconds'],
                 row['ms_per_iter'], row['relres']))
     if not (np.isfinite(gnorm) and gnorm > 0):
-        fail('12a: |grad| %r' % gnorm)
+        fail('%s: |grad| %r' % (tag, gnorm))
     for label, row in runs.items():
-        if not row['relres'] <= cfg.tol:
-            fail('12a: the %s GMRES stopped at relres %.3e > %.0e'
-                 % (label, row['relres'], cfg.tol))
+        ok = (row['relres'] <= cfg.tol if opts is None
+              else row['relres'] < 1.0)
+        if not ok:
+            fail('%s: the %s GMRES stopped at relres %.3e (tol %.0e)'
+                 % (tag, label, row['relres'], cfg.tol))
     return out
 
 
@@ -2214,6 +2304,337 @@ def phase11(card, nky=20):
             'middleware_25d': lambda: middleware_25d(512, nky, card)}
 
 
+# --- phase 13 ------------------------------------------------------------
+
+#: phase 13a-b's solver options: the production config with one change
+CONFIG_ROWS = {'2d': dict(PRODUCTION, fft_mode='2d'),
+               'add': dict(PRODUCTION, hybrid_comp='add'),
+               'iterative': dict(PRODUCTION, mg_coarse='iterative')}
+
+
+def config_row(name, n, nsrc, card, phase5=None):
+    '''
+    Phase 13a-b: phase 5's homogeneous row (n^2 x nsrc point sources,
+    warm-up then timed, relres <= 1e-5 and the oracle error < 1e-2) under
+    ``CONFIG_ROWS[name]``. The iterative coarse solve's ms an iteration is
+    printed beside phase 5's (``phase5``).
+    '''
+    row = headline(n, nsrc, 'hom', card, opts=CONFIG_ROWS[name],
+                   label=name)[0]
+    if name == 'iterative':
+        base = None if phase5 is None else phase5['ms_per_iter']
+        row['phase5_ms_per_iter'] = base
+        say('13b iterative coarse solve: %.2f ms an iteration, phase 5 '
+            '(dense inverse) %s (card %s)'
+            % (row['ms_per_iter'], 'not run' if base is None
+               else '%.2f ms' % base, card))
+    return row
+
+
+def slab_row(n, nsrc, card, overlap=16):
+    '''
+    Phase 13c: phase 5's n^2 hom row as one overlapped-Schwarz slab holds
+    it (zephyr_tpu/parallel/spatial.py:290-319 for a single x-slab): the
+    true and shifted planes grown by ``overlap`` mirrored columns a side
+    (its ``_extend_overlap`` with edge='mirror'), prepared with the
+    production config and the slab's closure mask (``slab_mask``: the
+    mirror band and the global ring column) as interior_mask; phase 5's
+    sources shifted by ``overlap``; a warm-up solve, then a timed one,
+    which must reach tol.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
+    from zephyr_tpu_torch.solver.helmholtz import (
+        make_chunked_solver, prepare_operator, resolve_solver_config,
+        shifted_velocity)
+    cfg = resolve_solver_config(PRODUCTION, torch.complex64)
+    freq = 1500.0 / 16
+
+    def mirror(p):
+        return torch.cat([p[..., :overlap].flip(-1), p,
+                          p[..., -overlap:].flip(-1)], dim=-1).contiguous()
+
+    reset_peak()
+    t0 = time.perf_counter()
+    c = torch.full((n, n), 1500.0, dtype=torch.complex64, device=DEV)
+    rho = torch.ones((n, n), dtype=torch.float32, device=DEV)
+    planes = mirror(minizephyr_planes(c, rho, freq)[None, None])
+    pplanes = mirror(minizephyr_planes(shifted_velocity(c, cfg.shift), rho,
+                                       freq, pml_cap=cfg.pml_cap)[None, None])
+    nx = planes.shape[-1]
+    mask = torch.as_tensor(slab_mask(n, nx, overlap), device=DEV)
+    op = prepare_operator(planes, pplanes, cfg, with_transpose=False,
+                          interior_mask=mask)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    b = torch.nn.functional.pad(point_sources(n, nsrc),
+                                (overlap, overlap)).contiguous()
+    solver = make_chunked_solver(cfg, chunk=32)
+    _, iters0, _ = solver(op, b)      # warm-up
+    torch.cuda.synchronize()
+    trace = []
+    t0 = time.perf_counter()
+    x, iters, relres = solver(op, b, trace=trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {'config': 'interior_mask', 'n': n, 'nx': nx, 'nsrc': nsrc,
+           'overlap': overlap, 'iters': iters, 'relres': relres,
+           'wall_s': wall, 'solves_per_s': nsrc / wall,
+           'ms_per_iter': 1e3 * wall / max(iters, 1), 'prep_s': t_prep,
+           'warmup_iters': iters0, 'peak_gb': peak_gb(),
+           'trace': compact_trace(trace)}
+    say('13c slab %dx%d (hom %d^2 + %d mirrored columns a side, closure '
+        'mask) x %d src: iters %d  relres %.3e  wall %.3f s  %.3f solves/s'
+        '  %.2f ms an iteration  (prep %.2f s; peak %.2f GB; card %s)'
+        % (n, nx, n, overlap, nsrc, iters, relres, wall, nsrc / wall,
+           out['ms_per_iter'], t_prep, out['peak_gb'], card))
+    if not (np.isfinite(relres) and relres <= cfg.tol
+            and bool(torch.isfinite(x).all())):
+        fail('13c: relres %.3e > tol %.0e; chunk trace %s'
+             % (relres, cfg.tol, trace))
+    return out
+
+
+def tti_2d(card, n=512, n_backward=256, max_chunks=8):
+    '''
+    Phase 13d: the `eurus` row (n^2 hom x 16, TTI_OPTS) with the 2x2
+    block symbol solve (fft_mode='2d'), chunked and stopped after
+    ``max_chunks`` chunks (finite and below its starting residual), then
+    the backward of ``solve_batched`` at ``n_backward``^2 (GMRES capped
+    at 200 iterations; a finite, non-zero gradient).
+    '''
+    opts = dict(TTI_OPTS, fft_mode='2d')
+    row = tti_bench(n, 16, 'hom', card, warm=False, max_chunks=max_chunks,
+                    opts=opts, label='2d')
+    bwd = tti_solve_backward(n_backward, 16, 64, card,
+                             opts=dict(opts, maxiter=200), tag='13d')
+    return {'eurus_2d': row, 'backward_2d': bwd}
+
+
+def write_mini_ini(path, nx, nz, freqs, srcs, recs):
+    '''
+    A minimal OMEGA-layout project ini (a copy of tests/test_io.py's
+    ``_write_mini_ini``): grid, frequencies, sources and receivers as
+    (x, z) pairs.
+    '''
+
+    def fmt_block(vals):
+        lines = []
+        for i in range(0, len(vals), 5):
+            lines.append(' '.join('%0.6E' % v for v in vals[i:i + 5]))
+        return lines
+
+    lines = [
+        '<comment><lessfiles>',
+        '   0           F',
+        '< nx >  < nz >  <    dx    >  <    dz    >  <  xorig   >  '
+        '<  zorig   >',
+        '   %d     %d      1.0000        1.0000        0.0000        0.0000'
+        % (nx, nz),
+        '<inv> <datain> <dataout> <waveout> <usescratch> <nom> <nsam> '
+        '< tau > <nftout>',
+        " F     'null '   'ftotl'        10  F              %d    100 "
+        "999.999       0" % len(freqs),
+        '<we> <param> <nky> <method> < vmin > <deltatt> <src> <wavscale> '
+        '<aniso> < freqbase>',
+        "'p '       2     1        1 2000.000    1.0000   1           F   "
+        "0.0000  5.0000E+01",
+        '<reduce>< redvel >< tbegin ><fst fsr fsb fsl><sponge><isufx>',
+        ' F           0.000     0.000   F   F   F   F     F       0',
+        '<   freq    >',
+    ]
+    lines += fmt_block(freqs)
+    lines += ['<     ky    >'] + fmt_block([0.0])
+    lines += ['<nslices>', '        0', '<slice> <source> <time>']
+    lines += ['<ns> <isreg> <sspread> <useswt>',
+              '  %d       4     0.500  F' % len(srcs),
+              '<source>  <xs>         <zs>         <swght>']
+    for i, (x, z) in enumerate(srcs):
+        lines.append('  %d  %0.5E  %0.5E   1.000' % (i + 1, x, z))
+    lines += ['<nr> <irreg> <rspread> <userwt>',
+              '  %d       4     0.500  F' % len(recs),
+              '<rec>  <xr>         <zr>         <rwght>']
+    for i, (x, z) in enumerate(recs):
+        lines.append('  %d  %0.5E  %0.5E   1.000' % (i + 1, x, z))
+    lines += ['<ng> <igreg> <gspread> <usegwt>',
+              '  0       4     0.500  F',
+              '<geo>  <xg>         <zg>         <gwght>']
+    lines += ['<sghost> <rghost> <gghost> <zgg>',
+              ' F   F   F   0.0',
+              '<zero1>',
+              ' 0 0 0 0',
+              ' 0 0 0 0']
+    with open(path, 'w') as fp:
+        fp.write('\n'.join(lines) + '\n')
+
+
+def write_project(name, n, c_np, nsrc, nrec, freqs):
+    '''
+    An OMEGA project in the current directory: ``name``.ini (n x n cells
+    of 1 m, ``freqs``, nsrc sources on the line z = n/16 and nrec
+    receivers on z = 15n/16, both across the middle 3/4 in x), the
+    velocity ``name``.vp and a unit density ``name``.rho (SEG-Y, one
+    trace per x). Without a density file the datastore takes Gardner's
+    310 c^0.25 (~1900), under which the default SolverConfig stalls in
+    both packages (fault F9).
+    '''
+    from zephyr_tpu_torch.middleware.segy import writeSEGY
+    xs = np.linspace(n / 8., 7. * n / 8., nsrc)
+    xr = np.linspace(n / 8., 7. * n / 8., nrec)
+    write_mini_ini('%s.ini' % name, n, n, freqs,
+                   [(x, n / 16.) for x in xs],
+                   [(x, 15. * n / 16.) for x in xr])
+    writeSEGY('%s.vp' % name, np.ascontiguousarray(c_np.T), format=5)
+    writeSEGY('%s.rho' % name, np.ones((n, n), np.float32), format=5)
+
+
+class captured_data:
+    '''
+    Keep the data ForwardModelingJob.run returns inside the block (the
+    method is replaced for the block's duration by one that calls
+    through and keeps the result).
+    '''
+
+    def __enter__(self):
+        from zephyr_tpu_torch.frontend import jobs
+        self.saved = run = jobs.ForwardModelingJob.run
+        self.data = []
+
+        def keep(job):
+            out = run(job)
+            self.data.append(out)
+            return out
+        jobs.ForwardModelingJob.run = keep
+        return self
+
+    def __exit__(self, *exc):
+        from zephyr_tpu_torch.frontend import jobs
+        jobs.ForwardModelingJob.run = self.saved
+
+
+def frontend_jobs(card, n=2048, n_small=256):
+    '''
+    Phase 13e: the port's CLI end to end on the card. An OMEGA project at
+    n^2 (the 4-layer model, 2 frequencies at 16 and 8 cells per
+    wavelength, 16 sources, 64 receivers) through ``cli.main(['model',
+    ...])``, whose .utout file must read back equal to the data the job
+    returned (1e-5 of the largest, its float32 storage); ``inspect``;
+    then at n_small^2 observed data at a perturbed model, and
+    ``migrate`` and ``invert --maxiter 1`` from the 4-layer start model,
+    whose image must be finite and non-zero and whose model finite and
+    moved from the start. Every Krylov run inside the jobs (the default
+    SolverConfig: single BiCGStab runs to tol 1e-5, maxiter 500) must
+    reach tol. The projects are written under build/ in the checkout.
+    '''
+    import torch
+    from zephyr_tpu_torch.frontend import cli
+    from zephyr_tpu_torch.middleware import SEGYFile, utoutRead
+    from zephyr_tpu_torch.middleware.segy import writeSEGY
+    freqs = [1500. / 16, 1500. / 8]
+    where = os.path.join(HERE, 'build', 'chip_smoke_frontend')
+    os.makedirs(where, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(where)
+    out = {}
+    try:
+        write_project('big', n, layered_c(n), 16, 64, freqs)
+        reset_peak()
+        t0 = time.perf_counter()
+        with captured_data() as cap, krylov_runs() as kr:
+            rc = cli.main(['model', 'big', '--device', DEV])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_runs('model', kr)
+        if rc != 0 or len(cap.data) != 1:
+            fail('13e: model returned %r with %d data cubes'
+                 % (rc, len(cap.data)))
+        data = cap.data[0]
+        _, back = utoutRead('big.utout', 64)
+        scale = float(np.abs(data).max())
+        err = float(np.abs(back - data).max()) / scale
+        out['model'] = {'n': n, 'shape': list(data.shape), 'wall_s': wall,
+                        'utout_err': err, 'peak_gb': peak_gb(),
+                        'finite': bool(np.isfinite(data).all()),
+                        'krylov_iters': kr.iters,
+                        'krylov_relres': kr.relres}
+        say('13e cli model %d^2 4-layer, 2 frequencies x 16 sources x 64 '
+            'receivers: %.3f s, data %s, .utout read back within %.2e of '
+            'the largest, peak %.2f GB (card %s)'
+            % (n, wall, data.shape, err, out['model']['peak_gb'], card))
+        if not (out['model']['finite'] and data.shape == (64, 16, 2)
+                and err <= 1e-5 and scale > 0):
+            fail('13e: model data %s finite %s, .utout error %.3e'
+                 % (data.shape, out['model']['finite'], err))
+        if cli.main(['inspect', 'big', '--device', DEV]) != 0:
+            fail('13e: inspect failed')
+
+        c_true = layered_c(n_small)
+        c_true[n_small // 3:n_small // 2, n_small // 3:n_small // 2] -= 150.
+        write_project('small', n_small, c_true, 8, 32, freqs)
+        with captured_data() as cap, krylov_runs() as kr:
+            cli.main(['model', 'small', '--device', DEV])
+        check_runs('model (small)', kr)
+        dobs = cap.data[0]
+        for i, f in enumerate(freqs):
+            panel = dobs[:, :, i]
+            inter = np.empty((2 * panel.shape[1], panel.shape[0]))
+            inter[0::2] = panel.T.real
+            inter[1::2] = panel.T.imag
+            writeSEGY('small.utobs%0.3f' % f, inter, format=5)
+        writeSEGY('small.vp', np.ascontiguousarray(layered_c(n_small).T),
+                  format=5)
+        for cmd, fn in (('migrate', 'small1.gvp'), ('invert', 'small1.vp')):
+            argv = [cmd, 'small', '--device', DEV]
+            if cmd == 'invert':
+                argv += ['--maxiter', '1']
+            t0 = time.perf_counter()
+            with krylov_runs() as kr:
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_runs(cmd, kr)
+            arr = SEGYFile(fn)[:]
+            amax = float(np.abs(arr).max())
+            moved = float(np.abs(arr.T - layered_c(n_small)).max())
+            out[cmd] = {'n': n_small, 'wall_s': wall, 'max_abs': amax,
+                        'finite': bool(np.isfinite(arr).all()),
+                        'krylov_runs': len(kr.iters),
+                        'krylov_iters_max': max(kr.iters),
+                        'moved_from_start': moved if cmd == 'invert'
+                        else None}
+            say('13e cli %s %d^2: %.3f s, %d Krylov runs (at most %d '
+                'iterations), %s finite %s, max |.| %.6e%s (card %s)'
+                % (cmd, n_small, wall, len(kr.iters), max(kr.iters), fn,
+                   out[cmd]['finite'], amax,
+                   ', moved %.3f m/s from the start' % moved
+                   if cmd == 'invert' else '', card))
+            if rc != 0 or not out[cmd]['finite'] or not amax > 0 \
+                    or (cmd == 'invert' and not moved > 0):
+                fail('13e: %s returned %r, %s finite %s max %r'
+                     % (cmd, rc, fn, out[cmd]['finite'], amax))
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def check_runs(label, kr, tol=1e-5):
+    '''13e: every Krylov run ``kr`` recorded reached ``tol``.'''
+    worst = max(kr.relres) if kr.relres else float('nan')
+    if not (kr.relres and worst <= tol):
+        fail('13e %s: %d Krylov runs, worst relres %r > %.0e (iterations '
+             '%s)' % (label, len(kr.relres), worst, tol, kr.iters))
+
+
+def phase13(card, phase5=None):
+    '''Phase 13's sub-phases at their sizes, by name, in order.'''
+    rows = {name: (lambda name=name: config_row(name, 2048, 16, card,
+                                                phase5))
+            for name in CONFIG_ROWS}
+    return dict(rows, interior_mask=lambda: slab_row(2048, 16, card),
+                tti_2d=lambda: tti_2d(card),
+                frontend=lambda: frontend_jobs(card))
+
+
 #: the kernels each main path must launch (phase 6)
 SCALAR_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                'prolong_add_smooth', 'jacobi_sweep', 'restrict', 'prolong')
@@ -2226,6 +2647,11 @@ MIDDLEWARE_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                    'prolong_add_smooth', 'restrict', 'prolong')
 MULTIFREQ_PATH = MIDDLEWARE_PATH
 TTI_GRADIENT_PATH = TTI_PATH
+CONFIGS_PATH = ('apply_stencil', 'presmooth_restrict', 'prolong_add_smooth',
+                'restrict', 'prolong')
+CONFIGS_TTI_PATH = ('apply_block_stencil',)
+FRONTEND_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
+                 'prolong_add_smooth', 'jacobi_sweep')
 
 
 def main():
@@ -2329,13 +2755,34 @@ def main():
     if tg['k8_copies']:
         fail('phase 12: %d K8 calls copied their operands'
              % tg['k8_copies'])
+    # phase 13: 13a-c, 13d and 13e, each with its own counts
+    t13 = time.perf_counter()
+    p13 = phase13(card, runs[0])
+    ck.reset_launches()
+    cf = {name: p13[name]() for name in list(CONFIG_ROWS)
+          + ['interior_mask']}
+    torch.cuda.synchronize()
+    launches['configs'] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    cf['tti_2d'] = p13['tti_2d']()
+    torch.cuda.synchronize()
+    launches['configs_tti'] = dict(ck.LAUNCHES)
+    ck.reset_launches()
+    cf['frontend'] = p13['frontend']()
+    torch.cuda.synchronize()
+    launches['frontend'] = dict(ck.LAUNCHES)
+    cf['seconds'] = time.perf_counter() - t13
+    say('phase 13: %.1f s' % cf['seconds'])
 
     # phase 6
     for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH),
                         ('marmousi', MARMOUSI_PATH),
                         ('middleware', MIDDLEWARE_PATH),
                         ('multifreq', MULTIFREQ_PATH),
-                        ('tti_gradient', TTI_GRADIENT_PATH)):
+                        ('tti_gradient', TTI_GRADIENT_PATH),
+                        ('configs', CONFIGS_PATH),
+                        ('configs_tti', CONFIGS_TTI_PATH),
+                        ('frontend', FRONTEND_PATH)):
         say('launches over the %s path: %s'
             % (path, json.dumps(launches[path])))
         for name in names:
@@ -2361,6 +2808,7 @@ def main():
     say(json.dumps({'middleware': mw, 'card': card}))
     say(json.dumps({'multifreq': mf, 'card': card}))
     say(json.dumps({'tti_gradient': tg, 'card': card}))
+    say(json.dumps({'configs': cf, 'card': card}))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():

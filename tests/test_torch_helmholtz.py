@@ -197,10 +197,11 @@ def test_chunked_solver_nan_rhs_keeps_pre_chunk_iterate():
     assert x.shape == b.shape and not bool(x.abs().sum())
 
 
+#: configs the JAX package lacks, which the port refuses (fft_mode='2d',
+#: hybrid_comp='add' and mg_coarse='iterative' run now and are held
+#: against the JAX package in tests/test_torch_solver_configs.py)
 UNPORTED = [
-    dict(fft_mode='2d'), dict(hybrid_comp='add'), dict(fft_scale=4),
-    dict(mg_smoother='chebyshev'), dict(precond='fft'),
-    dict(mg_coarse='iterative'),
+    dict(fft_scale=4), dict(mg_smoother='chebyshev'), dict(precond='fft'),
 ]
 #: configs that raised before the two-sweep kernel and the panel family
 #: were ported (the panel case with an overlap that fits the 20-column

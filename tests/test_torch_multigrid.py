@@ -139,13 +139,17 @@ def test_presmooth_residual_scalar_matches_jax(hiers, transposed, nu1):
 
 def test_unported_smoothing_raises(hiers):
     '''
-    Smoothers the port lacks raise (an unknown name; the iterative
-    coarse solve); smoother='line' on scalar planes is 'jacobi', as in
-    the JAX package.
+    Smoothers and coarse solves the port lacks raise (an unknown name;
+    the iterative coarse solve builds with neither LU nor inverse, and is
+    held against the JAX package in tests/test_torch_solver_configs.py);
+    smoother='line' on scalar planes is 'jacobi', as in the JAX package.
     '''
     _, ht = hiers['inv']
-    with pytest.raises(NotImplementedError, match='iterative'):
-        tmg.build_hierarchy(ht.levels[0].planes, coarse='iterative')
+    with pytest.raises(ValueError, match='coarse'):
+        tmg.build_hierarchy(ht.levels[0].planes, coarse='cholesky')
+    hi = tmg.build_hierarchy(ht.levels[0].planes, min_size=10,
+                             coarse='iterative')
+    assert hi.coarse_lu is None and hi.coarse_inv is None
     hl = tmg.build_hierarchy(ht.levels[0].planes, min_size=10,
                              coarse='inv', smoother='line')
     assert all(lv.linez is None and lv.linex is None for lv in hl.levels)

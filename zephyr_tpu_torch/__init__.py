@@ -23,6 +23,9 @@ the same path:
                               surveys, problems with exact Jvec/Jtvec,
                               the inversion drivers (frequency
                               continuation), the host-side I/O helpers
+- zephyr_tpu_torch.frontend — the job classes (OmegaJob and the rest)
+                              and the ``zephyr-tpu-torch`` CLI
+                              (argparse; ``--device``, default cuda)
 - zephyr_tpu_torch.convert  — the JAX package's prepared state into the
                               port's
 - zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K9 (sm_90a), one

@@ -29,6 +29,15 @@ from ..core.device import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from .base import BaseModelDependent
 
 
+def default_complex_dtype(device=DEFAULT_DEVICE):
+    '''
+    The complex dtype a solve on ``device`` takes when none is
+    configured: complex64 on CUDA, complex128 on the CPU
+    (``core.device.resolve_dtype``).
+    '''
+    return resolve_dtype(None, device)
+
+
 class BaseDiscretization(BaseModelDependent):
     '''
     Base class for all discretizations. Subclasses provide

@@ -89,15 +89,14 @@ def operator_from_numpy(tree, device=DEFAULT_DEVICE):
     leaves went through ``np.asarray``, the transposed hierarchy and
     planes included when the JAX operator was prepared
     ``with_transpose=True``, a scalar operator's global or x-panel
-    stratified state with its DFT matrices (``strat_dft``), and a block
-    (TTI) operator's block stratified state and line-smoother levels. A
-    tree that needs an unported path raises NotImplementedError.
+    stratified state with its DFT matrices (``strat_dft``), a block
+    (TTI) operator's block stratified state and line-smoother levels, the
+    inverse interior symbol ``fft_sinv`` of an ``fft_mode='2d'`` operator,
+    and iterative hierarchies (no coarse LU, no inverse). Interior-masked
+    levels come through their masks as they are.
     '''
 
     device = resolve_device(device)
-    if getattr(tree, 'fft_sinv', None) is not None:
-        raise NotImplementedError("operator_from_numpy: fft_mode='2d' "
-                                  'symbol solves are not ported')
     hier = _hier_from_numpy(tree.hier, device)
     hierT = (None if getattr(tree, 'hierT', None) is None
              else _hier_from_numpy(tree.hierT, device))
@@ -120,7 +119,8 @@ def operator_from_numpy(tree, device=DEFAULT_DEVICE):
                          tensor_from_numpy(s.ldu, device), dft, packed)
     return HelmholtzOperator(tensor_from_numpy(tree.planes, device), hier,
                              strat, _opt(tree.cplanes, device), hierT,
-                             _opt(getattr(tree, 'planesT', None), device))
+                             _opt(getattr(tree, 'planesT', None), device),
+                             _opt(getattr(tree, 'fft_sinv', None), device))
 
 
 def _take(node, i):

@@ -74,3 +74,15 @@ def hankel1_0(x):
     '''
 
     return torch.complex(bessel_j0(x), bessel_y0(x))
+
+
+def bessel_i0(x):
+    'Modified Bessel function of the first kind, order zero (real x).'
+
+    return torch.special.i0(x)
+
+
+def sinc(x):
+    'Normalized sinc, matching numpy.sinc: sin(pi x) / (pi x).'
+
+    return torch.sinc(x)

@@ -227,6 +227,24 @@ def planes_to_dense(planes):
     return A
 
 
+def block_planes_to_dense(planes):
+    '''
+    Assemble (B, B, 9, nz, nx) block planes (numpy or CPU tensor) into a
+    dense numpy (B*nz*nx, B*nz*nx) matrix.
+    '''
+
+    planes = np.asarray(planes)
+    B = planes.shape[0]
+    nz, nx = planes.shape[-2:]
+    n = nz * nx
+    A = np.zeros((B * n, B * n), dtype=planes.dtype)
+    for i in range(B):
+        for j in range(B):
+            A[i * n:(i + 1) * n, j * n:(j + 1) * n] = \
+                planes_to_dense(planes[i, j])
+    return A
+
+
 def planes_to_dense_torch(planes):
     '''
     Dense assembly of block planes (B, B, 9, nz, nx) into a

@@ -21,7 +21,21 @@ scalar solve is preconditioned by one of:
   (``fft_scale=1``) or between the transfer operators (K7) at half
   resolution, the residual against the true operator (K1) and one
   V-cycle (K2, K4 and at ``mg_nu2=2`` K5 per level);
+- the additive hybrid (``hybrid_comp='add'``): M r = P r + V r;
 - one V-cycle (``precond='mg'``).
+
+The spectral solve P is the stratified PCR interior solve
+(``fft_mode='strat'``) or the 2D-FFT symbol solve (``fft_mode='2d'``):
+ifft2(S fft2 r) with S the regularised pointwise inverse of the mean
+interior stencil's Fourier symbol (``_fft_symbol_inverse``; cuFFT through
+``torch.fft``), at full resolution or, at ``fft_scale=2``, from the
+Galerkin-coarsened planes (where the fused cycle takes it as its level-1
+boost). The coarsest level is a dense inverse, an LU, or
+(``mg_coarse='iterative'``) ``mg_coarse_iters`` steps of
+block-Jacobi-preconditioned BiCGStab that stay on the device (K1, or K8
+for a block operator). ``interior_mask`` keeps extra rows (an
+overlapped-Schwarz slab's closure band) out of every coarse-grid
+correction.
 
 Every V-cycle takes any sweep counts ``mg_nu1``, ``mg_nu2`` >= 0 (more
 than two sweeps run the two-sweep kernel K6). The stratified solve is
@@ -29,11 +43,13 @@ global or, for laterally heterogeneous media (``strat_panels > 1``, which
 ``resolve_panels`` picks for them), x-panelled; its x-transform is cuFFT
 or (``strat_dft``) a DFT matmul.
 
-A block solve's hybrid preconditioner is always 'mult' at full
-resolution: the block stratified PCR interior solve built from the fine
-planes (cuFFT and plain torch), the residual against the true operator
-(K8) and one V-cycle smoothed by alternating z/x lines (K8 for every
-residual, K7 for the transfers, plain-torch block PCR for the lines).
+A block solve's stratified hybrid preconditioner is always 'mult' or
+'add' at full resolution: the block stratified PCR interior solve built
+from the fine planes (cuFFT and plain torch), the residual against the
+true operator (K8) and one V-cycle smoothed by alternating z/x lines (K8
+for every residual, K7 for the transfers, plain-torch block PCR for the
+lines). With ``fft_mode='2d'`` the block symbol solve takes the scalar
+path's compositions, the fused cycle included.
 
 ``solve``/``solve_batched`` are differentiable (``torch.autograd``) with
 respect to the planes and the right-hand side, as
@@ -54,8 +70,8 @@ from typing import NamedTuple, Any
 import numpy as np
 import torch
 
-from ..ops.stencil import (apply_block_stencil_fast, block_plane_products,
-                           transpose_block_planes)
+from ..ops.stencil import (CENTER, OFFSETS, apply_block_stencil_fast,
+                           block_plane_products, transpose_block_planes)
 from .krylov import (bicgstab, fgmres, fgmres_cycle, gmres, gmres_cycle,
                      _norm)
 from .multigrid import (build_hierarchy, v_cycle, presmooth_restrict,
@@ -119,9 +135,9 @@ def check_config(config, block_size=1):
     if config.krylov not in ('auto', 'bicgstab', 'gmres', 'fgmres'):
         no('krylov=%r' % (config.krylov,), "use 'auto', 'bicgstab', "
            "'gmres' or 'fgmres'")
-    if config.mg_coarse not in ('inv', 'lu'):
-        no('mg_coarse=%r' % (config.mg_coarse,), "the port has 'inv' and "
-           "'lu' coarse solves")
+    if config.mg_coarse not in ('inv', 'lu', 'iterative'):
+        no('mg_coarse=%r' % (config.mg_coarse,), "use 'inv', 'lu' or "
+           "'iterative'")
     if config.mg_smoother not in ('auto', 'line', 'jacobi'):
         no('mg_smoother=%r' % (config.mg_smoother,), "use 'auto', 'line' "
            "or 'jacobi'")
@@ -132,12 +148,11 @@ def check_config(config, block_size=1):
         return
     if config.precond != 'hybrid':
         no('precond=%r' % (config.precond,), "use 'hybrid' or 'mg'")
-    if config.fft_mode != 'strat':
-        no('fft_mode=%r' % (config.fft_mode,), 'the 2D-FFT symbol solve '
-           'is not ported yet')
-    if config.hybrid_comp not in ('fused', 'mult'):
-        no('hybrid_comp=%r' % (config.hybrid_comp,), "the additive "
-           "composition is not ported yet; use 'fused' or 'mult'")
+    if config.fft_mode not in ('strat', '2d'):
+        no('fft_mode=%r' % (config.fft_mode,), "use 'strat' or '2d'")
+    if config.hybrid_comp not in ('fused', 'mult', 'add'):
+        no('hybrid_comp=%r' % (config.hybrid_comp,), "use 'fused', "
+           "'mult' or 'add'")
     if config.fft_scale not in (1, 2):
         no('fft_scale=%r' % (config.fft_scale,), 'the spectral solve runs '
            'at full (1) or half (2) resolution')
@@ -207,40 +222,163 @@ def shifted_velocity(c, shift=0.5j):
 class HelmholtzOperator(NamedTuple):
     '''
     A prepared Helmholtz system: coefficient planes, the multigrid
-    hierarchy of the shifted operator, the stratified interior solve
-    (precond='hybrid'), the Galerkin-coarsened true planes (the fused
-    cycle's level-1 residual operator) and, for transpose solves, the
-    transposed hierarchy and planes.
+    hierarchy of the shifted operator, the spectral interior solve
+    (precond='hybrid': the stratified state, or the inverse interior
+    symbol at fft_mode='2d'), the Galerkin-coarsened true planes (the
+    fused cycle's level-1 residual operator) and, for transpose solves,
+    the transposed hierarchy and planes.
     '''
 
     planes: Any            # (B, B, 9, nz, nx)
     hier: Any              # MGHierarchy of the shifted operator
     strat: Any = None      # StratPCR, or StratPCRBlock at B=2
-                           # (precond='hybrid')
+                           # (precond='hybrid', fft_mode='strat')
     cplanes: Any = None    # (B, B, 9, nzc, nxc) (hybrid_comp='fused')
     hierT: Any = None      # MGHierarchy of the transposed shifted operator
     planesT: Any = None    # (B, B, 9, nz, nx) transposed true planes
+    fft_sinv: Any = None   # (B, B, nz', nx') inverse interior symbol
+                           # (precond='hybrid', fft_mode='2d')
+
+
+def _interior_window(nz, nx):
+    '''The central quarter window (z0, z1, x0, x1) of an nz x nx grid.'''
+    return (nz // 4, max(nz // 4 + 1, (3 * nz) // 4),
+            nx // 4, max(nx // 4 + 1, (3 * nx) // 4))
+
+
+def _mean_interior_coeffs(planes):
+    '''
+    Mean stencil coefficients (B, B, 9) over the central quarter window,
+    which excludes the boundary ring, the PML frame and free-surface rows
+    for any sensible nPML < min(nz, nx) / 4.
+    '''
+
+    z0, z1, x0, x1 = _interior_window(*planes.shape[-2:])
+    return torch.mean(planes[..., z0:z1, x0:x1], dim=(-2, -1))
+
+
+def _fft_symbol_inverse(planes, precond_planes, config):
+    '''
+    Regularised inverse Fourier symbol of the constant-coefficient
+    interior operator at the spectral CSLP shift ``config.fft_shift``
+    (B <= 2): the port of the JAX package's function.
+
+    With mean interior coefficients c0 of the true planes and cP of the
+    ``config.shift``-shifted planes, the mass coefficients are
+    cM = (c0 - cP) / shift and the symbol at the spectral shift is
+    assembled from c0 - fft_shift * cM. ``fft_shift='auto'`` is 0.03j
+    when the interior mass term's contrast is below 1.05 (near
+    homogeneous media), else 0.25j, and always 0.25j for B=2. The symbol
+    (its determinant for B=2) is clamped to ``fft_delta`` times its
+    largest magnitude. The symbol is built by explicit multiply-add in
+    the working dtype. Returns (B, B, nz, nx) pointwise inverse blocks.
+    '''
+
+    B = planes.shape[0]
+    c0 = _mean_interior_coeffs(planes)
+    cP = _mean_interior_coeffs(precond_planes)
+    cdtype, rdtype = c0.dtype, c0.real.dtype
+    dev = c0.device
+    shift = torch.tensor(complex(config.shift), dtype=cdtype, device=dev)
+    cM = (c0 - cP) / shift
+
+    fft_shift = config.fft_shift
+    if isinstance(fft_shift, str):      # 'auto'
+        if B > 1:
+            fs = torch.tensor(0.25j, dtype=cdtype, device=dev)
+        else:
+            z0, z1, x0, x1 = _interior_window(*planes.shape[-2:])
+            mass = (planes[0, 0, CENTER, z0:z1, x0:x1]
+                    - precond_planes[0, 0, CENTER, z0:z1, x0:x1]) / shift
+            ma = torch.abs(mass)
+            tiny = torch.finfo(rdtype).tiny
+            contrast = torch.sqrt(torch.max(ma)
+                                  / torch.clamp(torch.min(ma), min=tiny))
+            im = torch.where(contrast < 1.05,
+                             torch.tensor(0.03, dtype=rdtype, device=dev),
+                             torch.tensor(0.25, dtype=rdtype, device=dev))
+            fs = torch.complex(torch.zeros_like(im), im)
+    else:
+        fs = torch.tensor(complex(fft_shift), dtype=cdtype, device=dev)
+    cF = c0 - fs * cM
+
+    nz, nx = planes.shape[-2:]
+    kz = (2 * np.pi) * torch.fft.fftfreq(nz, dtype=torch.float64,
+                                         device=dev).to(rdtype)
+    kx = (2 * np.pi) * torch.fft.fftfreq(nx, dtype=torch.float64,
+                                         device=dev).to(rdtype)
+    KZ, KX = torch.meshgrid(kz, kx, indexing='ij')
+    sym = torch.zeros((B, B, nz, nx), dtype=cdtype, device=dev)
+    for k, (dz, dx) in enumerate(OFFSETS):
+        phase = torch.exp(1j * (KZ * dz + KX * dx)).to(cdtype)
+        sym = sym + cF[:, :, k, None, None] * phase
+
+    def clamp(d):
+        a = torch.abs(d)
+        dmin = config.fft_delta * torch.max(a)
+        scale = torch.where(a < dmin, dmin / torch.clamp(a, min=1e-30),
+                            torch.ones_like(a))
+        return d * scale.to(d.dtype)
+
+    if B == 1:
+        return (1.0 / clamp(sym[0, 0]))[None, None]
+    a, bb, c, d = sym[0, 0], sym[0, 1], sym[1, 0], sym[1, 1]
+    det = clamp(a * d - bb * c)
+    inv = torch.stack([torch.stack([d, -bb], 0), torch.stack([-c, a], 0)],
+                      0)
+    return inv / det
+
+
+def _symbol_solver(sinv, transpose=False):
+    '''
+    The 2D-FFT spectral solve on a batch (R, B, nz, nx): ifft2(S fft2 r),
+    or for the transpose fft2(S^T ifft2 r) with S^T = sinv with its block
+    axes swapped (the DFT matrix is symmetric). The block product is an
+    explicit multiply-add.
+    '''
+
+    if transpose:
+        sinv = sinv.transpose(0, 1)
+    fwd, inv = ((torch.fft.ifft2, torch.fft.fft2) if transpose
+                else (torch.fft.fft2, torch.fft.ifft2))
+
+    def P0(r):
+        R = fwd(r)
+        outs = []
+        for i in range(sinv.shape[0]):
+            acc = None
+            for j in range(sinv.shape[1]):
+                term = sinv[i, j] * R[:, j]
+                acc = term if acc is None else acc + term
+            outs.append(acc)
+        return inv(torch.stack(outs, dim=1))
+    return P0
 
 
 def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
-                     with_transpose=True):
+                     with_transpose=True, interior_mask=None):
     '''
     Build a HelmholtzOperator from true planes and the planes of the
     complex-shifted operator (default: the true planes). The multigrid
     hierarchy comes from the shifted planes; the hybrid preconditioner's
-    stratified solve is built from the fine true and shifted planes
+    spectral solve (stratified or, at ``fft_mode='2d'``, the inverse
+    interior symbol) is built from the fine true and shifted planes
     (fft_scale=1) or from their Galerkin-coarsened operators
     (fft_scale=2). ``with_transpose`` adds the transposed hierarchy and
-    planes that the backward of ``solve`` needs. Everything but the
-    planes themselves is built from detached tensors: the preconditioner
-    takes no part in differentiation.
+    planes that the backward of ``solve`` needs. ``interior_mask``
+    ((nz, nx) in {0, 1}) marks extra rows to keep out of the coarse-grid
+    correction (see ``multigrid.build_hierarchy``), in the hierarchy and
+    in the Galerkin-coarsened true planes. Everything but the planes
+    themselves is built from detached tensors: the preconditioner takes
+    no part in differentiation.
 
     Block (B=2) operators smooth with alternating z/x lines unless
-    ``mg_smoother='jacobi'``, and their stratified solve is the block
+    ``mg_smoother='jacobi'``. Their stratified solve is the block
     family built from the FINE planes at every ``fft_scale`` (the JAX
     package measured the Galerkin-coarsened block symbol to stall the
     outer iteration), so there is no coarsened true operator and the
-    fused composition falls through to 'mult'.
+    fused composition falls through to 'mult'; their 2D-FFT symbol solve
+    follows the scalar rules.
     '''
 
     B = planes.shape[0]
@@ -249,15 +387,17 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
         precond_planes = planes
     pp = precond_planes.detach()
     tp = planes.detach()
+    imask = None if interior_mask is None else interior_mask.detach()
     smoother = ('line' if B > 1 and config.mg_smoother in ('auto', 'line')
                 else 'jacobi')
     hier = build_hierarchy(pp, min_size=config.mg_min_size,
-                           coarse=config.mg_coarse, smoother=smoother)
+                           coarse=config.mg_coarse, smoother=smoother,
+                           interior_mask=imask)
     hierT = transpose_hierarchy(hier) if with_transpose else None
     if config.precond == 'mg':
         return HelmholtzOperator(planes, hier, hierT=hierT)
     planesT = transpose_block_planes(tp) if with_transpose else None
-    if B == 2:
+    if B == 2 and config.fft_mode == 'strat':
         strat = pcr_precompute_block(*stratified_coeffs_block(
             tp, pp, config.shift, config.fft_shift))
         return HelmholtzOperator(planes, hier, strat, None, hierT, planesT)
@@ -266,6 +406,8 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
     if config.fft_scale > 1 or config.hybrid_comp == 'fused':
         nz, nx = tp.shape[-2:]
         mask = _ring_mask(nz, nx, tp.real.dtype, tp.device)
+        if imask is not None:
+            mask = mask * imask.to(mask.dtype)
         ctrue = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(tp,
                                                                    mask)))
         if len(hier.levels) > 1:
@@ -277,6 +419,11 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
         src_true, src_pp = ctrue, cpp
     else:
         src_true, src_pp = tp, pp
+    cplanes = ctrue if config.hybrid_comp == 'fused' else None
+    if config.fft_mode == '2d':
+        return HelmholtzOperator(
+            planes, hier, None, cplanes, hierT, planesT,
+            _fft_symbol_inverse(src_true, src_pp, config))
     if config.strat_panels > 1:
         l, d, u = stratified_coeffs_panels(
             src_true, src_pp, config.shift, config.fft_shift,
@@ -293,7 +440,6 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
     use_dft = (config.strat_dft == 'dft'
                or (config.strat_dft == 'auto' and w_solve <= 2048))
     strat = pcr_precompute(l, d, u, dft=w_solve if use_dft else None)
-    cplanes = ctrue if config.hybrid_comp == 'fused' else None
     return HelmholtzOperator(planes, hier, strat, cplanes, hierT, planesT)
 
 
@@ -303,21 +449,24 @@ def _make_precond(op, config, transpose=False):
 
     'mg': one V-cycle on the shifted hierarchy.
     'hybrid', hybrid_comp='fused' (forward, two or more levels, spectral
-        solve at half resolution): ONE cycle in which the stratified PCR
+        solve at half resolution): ONE cycle in which the spectral
         interior solve is the level-1 coarse-grid boost — fine pre-smooth
         and restricted residual, xc = P rc, the residual against the
         Galerkin-coarsened TRUE operator, a V-cycle from level 1, then
         prolong, add and the fine post-smooth.
-    'hybrid', otherwise ('mult'): M r = P r + V (r - A P r), with P the
-        stratified solve at full resolution or, at fft_scale=2,
-        mask P_2h S_c R_2h mask between the transfer operators (K7).
+    'hybrid', hybrid_comp='add': M r = P r + V r.
+    'hybrid', otherwise ('mult'): M r = P r + V (r - A P r).
+    In 'add' and 'mult' P is the spectral solve at full resolution or, at
+    fft_scale=2, mask P_2h S_c R_2h mask between the transfer operators
+    (K7). The spectral solve is the stratified one or, for an operator
+    with ``fft_sinv``, the 2D-FFT symbol solve.
 
     With ``transpose=True`` the same construction from the transposed
-    parts, P^T + V^T (I - A^T P^T): a preconditioner FOR the transposed
-    operator (the JAX package's choice; the fused cycle falls back to
-    'mult'). P^T = F T^{-T} F^{-1}, the transposed tridiagonal (or, for a
-    block operator, block-tridiagonal) family reduced once here in full
-    precision.
+    parts, e.g. P^T + V^T (I - A^T P^T): a preconditioner FOR the
+    transposed operator (the JAX package's choice; the fused cycle falls
+    back to 'mult'). P^T = F T^{-T} F^{-1}, the transposed tridiagonal
+    (or, for a block operator, block-tridiagonal) family reduced once
+    here in full precision; for the symbol solve fft2(S^T ifft2 r).
     '''
 
     is_block = op.planes.shape[0] == 2
@@ -327,36 +476,43 @@ def _make_precond(op, config, transpose=False):
         raise ValueError('operator was prepared with with_transpose=False: '
                          'it has no transpose preconditioner')
     omega, nu1, nu2 = config.mg_omega, config.mg_nu1, config.mg_nu2
+    coarse_iters = config.mg_coarse_iters
 
     def mg(r):
-        return v_cycle(hier, r, omega=omega, nu1=nu1, nu2=nu2)
+        return v_cycle(hier, r, omega=omega, nu1=nu1, nu2=nu2,
+                       coarse_iters=coarse_iters)
 
-    if config.precond == 'mg' or op.strat is None:
+    has_spec = op.strat is not None or op.fft_sinv is not None
+    if config.precond == 'mg' or not has_spec:
         if config.precond != 'mg':
             raise ValueError("operator was prepared without the hybrid "
                              "solve; use precond='mg'")
         return mg
 
     planes = (op.planesT if transpose else op.planes).detach()
-    strat = op.strat
-    if transpose:
-        strat = (transpose_pcr_block if is_block else transpose_pcr)(strat)
     nzf, nxf = planes.shape[-2:]
-    # the spectral solve runs on the fine grid or (fft_scale=2) the
-    # Galerkin-coarsened one; panel bands are P*W wide, so key on nz
-    spec_nz = op.strat.ldu.shape[-2]
-    spec_nx = nxf if spec_nz == nzf else (nxf + 1) // 2
-
-    if is_block:
-        def P0(r):
-            return stratified_apply_block(strat, r, transpose=transpose)
-    elif config.strat_panels > 1:
-        P0 = panel_solver(strat, spec_nx, config.strat_panels,
-                          config.strat_overlap, transpose=transpose,
-                          taper=config.strat_taper)
+    if op.fft_sinv is not None:
+        spec_nz = op.fft_sinv.shape[-2]
+        P0 = _symbol_solver(op.fft_sinv, transpose)
     else:
-        def P0(r):
-            return stratified_apply(strat, r, transpose=transpose)
+        strat = op.strat
+        if transpose:
+            strat = (transpose_pcr_block if is_block
+                     else transpose_pcr)(strat)
+        # the spectral solve runs on the fine grid or (fft_scale=2) the
+        # Galerkin-coarsened one; panel bands are P*W wide, so key on nz
+        spec_nz = op.strat.ldu.shape[-2]
+        spec_nx = nxf if spec_nz == nzf else (nxf + 1) // 2
+        if is_block:
+            def P0(r):
+                return stratified_apply_block(strat, r, transpose=transpose)
+        elif config.strat_panels > 1:
+            P0 = panel_solver(strat, spec_nx, config.strat_panels,
+                              config.strat_overlap, transpose=transpose,
+                              taper=config.strat_taper)
+        else:
+            def P0(r):
+                return stratified_apply(strat, r, transpose=transpose)
 
     if (config.hybrid_comp == 'fused' and not transpose
             and op.cplanes is not None and len(hier.levels) > 1
@@ -369,7 +525,7 @@ def _make_precond(op, config, transpose=False):
             xc = P0(rc)
             rc2 = rc - apply_block_stencil_fast(cpl, xc)
             xc = xc + v_cycle(hier, rc2, omega=omega, nu1=nu1, nu2=nu2,
-                              level=1)
+                              level=1, coarse_iters=coarse_iters)
             return prolong_add_smooth(lvl0, u, r, xc, omega, nu2)
 
         return M
@@ -383,6 +539,11 @@ def _make_precond(op, config, transpose=False):
 
         def P(r):
             return maskP * prolong(P0(restrict(maskP * r)), nzf, nxf)
+
+    if config.hybrid_comp == 'add':
+        def M(r):
+            return P(r) + mg(r)
+        return M
 
     def M(r):
         x1 = P(r)
@@ -503,6 +664,15 @@ def solve_batched(op, b, config=SolverConfig(), planes=None):
 
     return _LinearSolve.apply(op.planes if planes is None else planes, b,
                               op, config)
+
+
+def solve_batched_jit(op, b_batch, config):
+    '''
+    The JAX package's jitted entry point for repeated host-driven solves.
+    The port compiles nothing per call, so this is ``solve_batched``.
+    '''
+
+    return solve_batched(op, b_batch, config)
 
 
 def solve(op, b, config=SolverConfig()):

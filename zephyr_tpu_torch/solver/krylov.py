@@ -37,7 +37,7 @@ class BicgstabResult(NamedTuple):
     relres: Any    # (R,) real
 
 
-def bicgstab(matvec, b, M=None, tol=1e-6, maxiter=1000):
+def bicgstab(matvec, b, M=None, x0=None, tol=1e-6, maxiter=1000):
     '''
     Right-preconditioned BiCGStab for a batch of right-hand sides.
 
@@ -45,14 +45,46 @@ def bicgstab(matvec, b, M=None, tol=1e-6, maxiter=1000):
         matvec: x -> A x on a batch (R, B, nz, nx)
         b: right-hand sides (R, B, nz, nx)
         M: preconditioner application on a batch (or None)
+        x0: initial guess (default zeros)
         tol: relative residual target ||r|| <= tol * ||b||, a float or an
             (R,) tensor (per right-hand side)
         maxiter: iteration cap
 
     Returns:
         BicgstabResult(x, iters (R,), relres (R,))
+
+    The loop ends once every right-hand side is done, which costs one
+    host sync an iteration; ``bicgstab_fixed`` runs without it.
     '''
 
+    return _bicgstab(matvec, b, M, x0, tol, maxiter, fixed=False)
+
+
+def bicgstab_batched(matvec, b_batch, M=None, tol=1e-6, maxiter=1000):
+    '''
+    The JAX package's vmap of ``bicgstab`` over a leading right-hand-side
+    axis. The port's ``bicgstab`` is batched already, with the same
+    semantics (each right-hand side frozen once its own loop has ended),
+    so this is ``bicgstab`` on b_batch (R, B, nz, nx).
+    '''
+
+    return bicgstab(matvec, b_batch, M=M, tol=tol, maxiter=maxiter)
+
+
+def bicgstab_fixed(matvec, b, M=None, x0=None, tol=1e-6, maxiter=12):
+    '''
+    ``bicgstab`` that runs exactly ``maxiter`` steps and never syncs with
+    the host: a right-hand side that meets tol or breaks down is frozen
+    by a select, as the JAX package's vmapped ``while_loop`` freezes a
+    finished lane, so each right-hand side's result equals ``bicgstab``'s.
+    For short solves inside a preconditioner (the iterative coarse solve
+    of a V-cycle).
+    '''
+
+    return _bicgstab(matvec, b, M, x0, tol, maxiter, fixed=True)
+
+
+def _bicgstab(matvec, b, M, x0, tol, maxiter, fixed):
     if M is None:
         M = lambda r: r
 
@@ -71,7 +103,7 @@ def bicgstab(matvec, b, M=None, tol=1e-6, maxiter=1000):
                            num / torch.where(bad, torch.ones_like(den),
                                              den))
 
-    x = torch.zeros_like(b)
+    x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     rhat = r
     p = torch.zeros_like(b)
@@ -85,10 +117,13 @@ def bicgstab(matvec, b, M=None, tol=1e-6, maxiter=1000):
         return (_norm(r) > atol) & (k < maxiter) & ~down
 
     act = active_mask()
-    while True:
-        flags = act.cpu()   # the one host sync of an iteration
-        if not bool(flags.any()):
-            break
+    for _ in range(maxiter):
+        everyone = False
+        if not fixed:
+            flags = act.cpu()   # the one host sync of an iteration
+            if not bool(flags.any()):
+                break
+            everyone = bool(flags.all())
         rho_new = _dot(rhat, r)
         beta = _safe_div(rho_new * alpha, rho * omega)
         p_new = r + _bcast(beta, r) * (p - _bcast(omega, v) * v)
@@ -108,7 +143,7 @@ def bicgstab(matvec, b, M=None, tol=1e-6, maxiter=1000):
         down_new = ((torch.abs(rho_new) < tiny) | (torch.abs(denom) < tiny)
                     | (torch.abs(omega_new) < tiny))
 
-        if bool(flags.all()):
+        if everyone:
             x, r, p, v = x_new, r_new, p_new, v_new
         else:
             # freeze every right-hand side whose own loop has ended

@@ -21,7 +21,12 @@ block (B=2, TTI) operators:
   (kernel K7) for the reduced-resolution spectral solve;
 - the hierarchy of the transposed operator (``transpose_hierarchy``);
 - the coarsest level solved directly with a dense inverse (one matmul)
-  or dense LU factors, computed once at preparation time.
+  or dense LU factors, computed once at preparation time, or
+  matrix-free (``coarse='iterative'``) by a fixed number of
+  block-Jacobi-preconditioned BiCGStab steps that stay on the device;
+- an optional ``interior_mask`` of extra rows kept out of the
+  coarse-grid correction (the closure rows of an overlapped-Schwarz
+  slab), decimated down the hierarchy.
 
 The hierarchy is a pair of NamedTuples of tensors; the right-hand-side
 batch is the explicit leading axis of every field, (R, B, nz, nx).
@@ -35,6 +40,7 @@ from ..ops import cuda_kernels, stencil
 from ..ops.stencil import (apply_block_stencil_fast, block_diag,
                            block_diag_matvec, invert_block_diag,
                            planes_to_dense_torch, shift2d)
+from .krylov import bicgstab_fixed
 from .stratified import pcr_apply_block, pcr_precompute_block
 
 #: per-axis prolongation weights for offsets (-1, 0, +1)
@@ -180,7 +186,8 @@ class MGHierarchy(NamedTuple):
     levels: Any        # tuple of MGLevel, fine -> coarse
     coarse_lu: Any     # LU factors of the coarsest dense operator
     coarse_piv: Any    # their (1-based, LAPACK) pivots
-    coarse_inv: Any = None  # explicit dense inverse (coarse='inv')
+    coarse_inv: Any = None  # explicit dense inverse (coarse='inv');
+                            # neither it nor the LU at coarse='iterative'
 
 
 def _ring_mask(nz, nx, dtype, device='cpu'):
@@ -248,13 +255,22 @@ def _line_pcr_states(planes, delta=1e-6):
 
 
 def build_hierarchy(planes, min_size=16, max_levels=16, coarse='lu',
-                    smoother='jacobi'):
+                    smoother='jacobi', interior_mask=None):
     '''
     Build a multigrid hierarchy from (B, B, 9, nz, nx) planes. Coarsens by
     2x per level until min(nz, nx) <= min_size, then inverts
     (coarse='inv') or LU-factorizes (coarse='lu') the coarsest dense
-    operator. Boundary-ring dofs are excluded from the coarse-grid
-    correction at every level.
+    operator, or leaves it matrix-free (coarse='iterative': a capped
+    BiCGStab at every coarse solve, see ``_coarse_solve``). Boundary-ring
+    dofs are excluded from the coarse-grid correction at every level.
+
+    ``interior_mask`` ((nz, nx) in {0, 1}, optional) marks extra rows to
+    exclude as well, on top of the ring: the closure rows of an
+    overlapped-Schwarz slab, which sit inside the slab. It multiplies
+    each level's ring mask and is decimated down the hierarchy (coarse
+    point (I, J) inherits fine point (2I, 2J)), so the closure band's
+    coarse images stay excluded at every level. Masked rows are still
+    smoothed.
 
     ``smoother='line'`` precomputes per-level alternating z/x line
     states for block (B > 1) operators; scalar operators always smooth
@@ -264,16 +280,18 @@ def build_hierarchy(planes, min_size=16, max_levels=16, coarse='lu',
     if smoother not in ('jacobi', 'line'):
         raise ValueError("build_hierarchy: smoother must be 'jacobi' or "
                          "'line', got %r" % (smoother,))
-    if coarse not in ('inv', 'lu'):
-        raise NotImplementedError(
-            "build_hierarchy: coarse=%r; the port has 'inv' and 'lu' "
-            "(the iterative coarse solve is not ported)" % (coarse,))
+    if coarse not in ('inv', 'lu', 'iterative'):
+        raise ValueError("build_hierarchy: coarse must be 'inv', 'lu' or "
+                         "'iterative', got %r" % (coarse,))
     rdtype = planes.real.dtype
     levels = []
     current = planes
+    imask = interior_mask
     for lev in range(max_levels):
         nz, nx = current.shape[-2:]
         mask = _ring_mask(nz, nx, rdtype, planes.device)
+        if imask is not None:
+            mask = mask * imask.to(rdtype)
         dinv = invert_block_diag(block_diag(current))
         linez = linex = None
         if smoother == 'line' and current.shape[0] > 1:
@@ -283,23 +301,42 @@ def build_hierarchy(planes, min_size=16, max_levels=16, coarse='lu',
             break
         masked = _mask_ring_planes(current, mask)
         current = _fix_empty_rows(galerkin_coarsen(masked))
+        if imask is not None:
+            imask = _strided_gather(imask, 0, 0, _coarse_extent(nz),
+                                    _coarse_extent(nx))
 
     lu, piv, cinv = None, None, None
-    dense = planes_to_dense_torch(levels[-1].planes)
     if coarse == 'lu':
-        lu, piv = torch.linalg.lu_factor(dense)
-    else:
-        cinv = torch.linalg.inv(dense)
+        lu, piv = torch.linalg.lu_factor(
+            planes_to_dense_torch(levels[-1].planes))
+    elif coarse == 'inv':
+        cinv = torch.linalg.inv(planes_to_dense_torch(levels[-1].planes))
     return MGHierarchy(tuple(levels), lu, piv, cinv)
 
 
-def _coarse_solve(hier, b):
+#: default iteration cap of the iterative coarse solve (the JAX package's
+#: ``COARSE_ITERS``; ``SolverConfig.mg_coarse_iters`` overrides it)
+COARSE_ITERS = 12
+
+
+def _coarse_solve(hier, b, coarse_iters=None):
     '''
-    Direct coarsest-level solve of a batch b (R, B, nz, nx). The inverse
+    Coarsest-level solve of a batch b (R, B, nz, nx). The dense inverse
     is applied as one full-f32 (or f64) matmul: on CUDA the TF32 matmul
-    shortcut would keep ~3 digits, so it must be off.
+    shortcut would keep ~3 digits, so it must be off. An iterative
+    hierarchy runs ``coarse_iters`` (default COARSE_ITERS) steps of
+    block-Jacobi-preconditioned BiCGStab to tol 1e-8 per right-hand side
+    on the coarsest planes (K1 or K8 for the matvec on the card), with
+    no host sync (``krylov.bicgstab_fixed``).
     '''
 
+    if hier.coarse_inv is None and hier.coarse_lu is None:
+        lvl = hier.levels[-1]
+        iters = COARSE_ITERS if coarse_iters is None else int(coarse_iters)
+        return bicgstab_fixed(
+            lambda x: apply_block_stencil_fast(lvl.planes, x), b,
+            M=lambda r: block_diag_matvec(lvl.dinv, r), tol=1e-8,
+            maxiter=iters).x
     R = b.shape[0]
     if b.device.type == 'cuda' and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError('coarse solve: torch.backends.cuda.matmul.'
@@ -407,18 +444,19 @@ def prolong_add_smooth(lvl, u, b, ec, omega, nu2):
     return _smooth(lvl, u0[:, None], b, omega, nu2 - 1)
 
 
-def v_cycle(hier, b, omega=0.6, nu1=2, nu2=2, level=0):
+def v_cycle(hier, b, omega=0.6, nu1=2, nu2=2, level=0, coarse_iters=None):
     '''
     One multigrid V-cycle for the (shifted) operator; returns an
     approximate solution of A x = b with zero initial guess for a batch
-    b of shape (R, B, nz, nx).
+    b of shape (R, B, nz, nx). ``coarse_iters`` caps an iterative
+    hierarchy's coarse solve.
     '''
 
     if level == len(hier.levels) - 1:
-        return _coarse_solve(hier, b)
+        return _coarse_solve(hier, b, coarse_iters)
     lvl = hier.levels[level]
     u, rc = presmooth_restrict(lvl, b, omega, nu1)
-    ec = v_cycle(hier, rc, omega, nu1, nu2, level + 1)
+    ec = v_cycle(hier, rc, omega, nu1, nu2, level + 1, coarse_iters)
     return prolong_add_smooth(lvl, u, b, ec, omega, nu2)
 
 
@@ -428,7 +466,8 @@ def transpose_hierarchy(hier):
     coarse operator of A^T equals the transpose of the coarse operator of A,
     so each level's planes are simply block-transposed (and its line
     states rebuilt from them); the coarsest dense inverse is transposed,
-    or its LU re-factorized from the transposed planes.
+    or its LU re-factorized from the transposed planes (an iterative
+    hierarchy has neither).
     '''
 
     levels = []
@@ -443,7 +482,7 @@ def transpose_hierarchy(hier):
     if hier.coarse_inv is not None:
         # inverse of the transpose is the transpose of the inverse
         cinv = hier.coarse_inv.T.contiguous()
-    else:
+    elif hier.coarse_lu is not None:
         lu, piv = torch.linalg.lu_factor(
             planes_to_dense_torch(levels[-1].planes))
     return MGHierarchy(tuple(levels), lu, piv, cinv)
