@@ -42,8 +42,9 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    (K1-K5, K7 must be > 0), over phase 8 (K7, K8), over phase 9 (K1-K4,
    K6 both variants, K7, K9), over phase 10 (K1-K4, K7), over phase 11
    (K1-K4, K7), over phase 12 (K7, K8), over 13a-c (K1, K2, K4, K7),
-   over 13d (K8) and over 13e (K1-K5), each path driven with the counts
-   set to 0 just before it;
+   over 13d (K8), over 13e (K1-K5) and over phase 14's spatial path
+   (14a-c and 14d's traced solve: K1-K4), each path driven with the
+   counts set to 0 just before it;
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
@@ -150,6 +151,32 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    returned data), ``inspect``, and ``migrate`` and ``invert --maxiter
    1`` on a 256^2 project (finite outputs). Each run prints its
    iterations, worst relres, wall, solves/s and peak GB.
+14. the scale-out layer (zephyr_tpu_torch.parallel.mesh / spatial,
+   ``make_sharded_fwi_step``, utils, entry) on virtual meshes of the
+   card, complex64, production config: (a) ``make_sharded_apply`` (K1
+   on each halo-grown shard) on 2x2 tiles and 4 x slabs against the
+   global K1 and the plain sharded sum at 2048^2 x 16 (1e-6), then
+   ``make_dd_solver`` on phase 5's 2048^2 layered
+   row on a 2x2 ('z', 'x') mesh, 1024^2 shards, at overlap 16 (grown to
+   1056^2) and 32 (one wavelength in the 3000 m/s layer), warm-up then
+   timed, the shards' operators alone timed beside: relres (the true
+   residual, globally too) <= 1e-5, within 1e-4 of the global chunked
+   solve, at overlap 32 iterations <= 2x phase 5's layered count (at 16
+   printed: there it exceeds 2x), its ms an iteration,
+   walls and peak GB; no K1 call may copy its operands;
+   (b) ``make_dd_dpred`` at 2048^2 layered, the top 2 of phase 7a's
+   frequencies (88.4, 93.75 Hz) x 16 sources x 64 receivers on the same
+   mesh, within 1e-4 of ``multifreq_dpred_chunked``, every relres of
+   both <= 1e-5 (at 56.25 Hz neither converges on this grid: F7, F10);
+   (c)
+   ``make_sharded_fwi_step`` at the ``gradient_marmousi`` size (512^2,
+   8 frequencies, 16 sources, 64 receivers) on a (freq=4, src=2) mesh,
+   one step, against ``fwi_misfit`` + ``torch.autograd.grad`` on one
+   device (misfit 1e-4, gradient 1e-3); (d) the first 4 iterations of
+   (a)'s solve under ``utils.trace()`` and ``annotate('dd_solve')`` (the
+   Chrome trace must name the annotation and K1-K4, ``stats()`` the
+   ``timeIt``-wrapped call), ``InversionCheckpointer`` on (c)'s state
+   (bit for bit), ``entry()`` and ``dryrun_multichip(4)``.
 
 After phase 6 it prints the K6 milliseconds of one nu 3/3 iteration (9b)
 and the K8 milliseconds of one `eurus` GMRES iteration (8b): the launches
@@ -158,7 +185,7 @@ level's phase-3 time. It prints one JSON line of per-kernel results, the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}. It
 needs one CUDA device and exits non-zero without one.
 ``tools/time_port_configs.py`` runs phase 3's slab-mask checks and
-phase 13 alone.
+phase 13 alone, ``tools/time_port_spatial.py`` phase 14.
 '''
 
 import json
@@ -2635,6 +2662,509 @@ def phase13(card, phase5=None):
                 frontend=lambda: frontend_jobs(card))
 
 
+# --- phase 14 ------------------------------------------------------------
+
+#: the layered iteration count of phase 5 on the card (PERF.md section 6),
+#: the base of 14a's bound when phase 5 did not run in the same process
+PHASE5_LAYERED_ITERS = 71
+#: phase 14's bounds: the sharded apply against the global one (relative
+#: to the reference's largest magnitude), the DD solve's worst relres, its
+#: distance from the global solve, its iterations against phase 5's, the
+#: DD forward's data against the single-device forward, the sharded FWI
+#: step's misfit and gradient against one device's (relative)
+DD_APPLY_TOL = 1e-6
+DD_RELRES = 1e-5
+DD_SOLUTION_TOL = 1e-4
+DD_ITERS_FACTOR = 2
+#: the overlaps of 14a: 16 cells, one wavelength at 1500 m/s (the DD
+#: solver's default), and 32, one wavelength in the 3000 m/s layer (the
+#: JAX package's rule of ~1 wavelength, spatial.py:267); the iteration
+#: bound is held at 32 (at 16 the 2048^2 layered row took 164 iterations,
+#: 2.31x phase 5's, on an H100 80GB HBM3 at 700 W)
+DD_OVERLAPS = (16, 32)
+DD_ITERS_OVERLAP = 32
+DD_DATA_TOL = 1e-4
+STEP_MISFIT_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
+#: the kernels whose names the exported trace of 14d must hold (K1-K4)
+TRACE_KERNELS = ('zt_apply_stencil_kernel', 'zt_presmooth_restrict_kernel',
+                 'zt_pcr_sweep_kernel', 'zt_prolong_add_smooth_kernel')
+#: the iterations of 14a's solve that 14d traces: a whole solve's trace is
+#: ~600 MB of JSON (110 iterations, ~5 MB an iteration, CPU rehearsal)
+TRACE_ITERS = 4
+
+
+def virtual_mesh(kind):
+    '''
+    A virtual mesh of 4 coordinates on the card: '2x2' ('z', 'x') tiles
+    or 'x4' x slabs, every coordinate ``cuda:0``.
+    '''
+    import torch
+    from zephyr_tpu_torch.parallel.mesh import Mesh
+    devs = np.empty(4, dtype=object)
+    devs[:] = torch.device(DEV, 0)
+    if kind == '2x2':
+        return Mesh(devs.reshape(2, 2), ('z', 'x')), dict(axis_name='x',
+                                                          axis_z='z')
+    return Mesh(devs, ('x',)), dict(axis_name='x')
+
+
+def layered_planes(n, cfg, freq=1500.0 / 16):
+    '(true, CSLP-shifted) MiniZephyr planes of the n^2 4-layer model.'
+    import torch
+    from zephyr_tpu_torch.ops.minizephyr_coeff import minizephyr_planes
+    from zephyr_tpu_torch.solver.helmholtz import shifted_velocity
+    c = torch.as_tensor(layered_c(n), device=DEV).to(torch.complex64)
+    rho = torch.ones((n, n), dtype=torch.float32, device=DEV)
+    return (minizephyr_planes(c, rho, freq)[None, None].contiguous(),
+            minizephyr_planes(shifted_velocity(c, cfg.shift), rho, freq,
+                              pml_cap=cfg.pml_cap)[None, None].contiguous())
+
+
+def sharded_apply_check(planes, nsrc, card):
+    '''
+    14a, first: ``make_sharded_apply`` (K1 on each halo-grown shard) on
+    2x2 tiles and on 4 x slabs against the global ``apply_stencil_batched``
+    (K1) and against the plain sharded apply (the JAX package's sum over
+    the 9 offsets on the halo-grown blocks), at the phase's n^2 x nsrc.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops.stencil import apply_stencil_batched
+    from zephyr_tpu_torch.parallel import spatial
+    from zephyr_tpu_torch.parallel.mesh import Sharding
+    n = planes.shape[-1]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    u = torch.complex(torch.randn((nsrc, 1, n, n), generator=gen,
+                                  device=DEV),
+                      torch.randn((nsrc, 1, n, n), generator=gen,
+                                  device=DEV))
+    ref = apply_stencil_batched(planes[0, 0], u[:, 0])[:, None]
+    out = {}
+    for kind in ('2x2', 'x4'):
+        mesh, kw = virtual_mesh(kind)
+        az = kw.get('axis_z')
+        got = spatial.make_sharded_apply(mesh, **kw)(planes, u)
+        ps = Sharding(mesh, (None, None, None, az, 'x'))
+        us = Sharding(mesh, (None, None, az, 'x'))
+        plain = us.gather(spatial.apply_stencil_sharded(
+            ps.split(planes), us.split(u), mesh, **kw))
+        out[kind] = {'vs_global': rel_err(got, ref)[0],
+                     'vs_plain': rel_err(got, plain)[0]}
+        say('14a sharded apply %s %d^2 x %d: K1 on the halo-grown shards '
+            'vs the global K1 %.3e, vs the plain sharded sum %.3e (limit '
+            '%.0e of the reference max; card %s)'
+            % (kind, n, nsrc, out[kind]['vs_global'], out[kind]['vs_plain'],
+               DD_APPLY_TOL, card))
+        if not (out[kind]['vs_global'] <= DD_APPLY_TOL
+                and out[kind]['vs_plain'] <= DD_APPLY_TOL):
+            fail('14a: the sharded apply on %s disagrees: %s'
+                 % (kind, out[kind]))
+        del got, plain
+    del u, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def dd_reference(n, nsrc, card):
+    '''
+    14a's reference: phase 5's production layered row on one device (the
+    global operator, make_chunked_solver, chunk 32), its solution kept.
+    Returns (planes, pplanes, b, x_ref, iterations, relres, config).
+    '''
+    import torch
+    from zephyr_tpu_torch.solver.helmholtz import (
+        make_chunked_solver, prepare_operator, resolve_solver_config)
+    cfg = resolve_solver_config(PRODUCTION, torch.complex64)
+    planes, pplanes = layered_planes(n, cfg)
+    op = prepare_operator(planes, pplanes, cfg, with_transpose=False)
+    b = point_sources(n, nsrc)
+    x_ref, iters, relres = make_chunked_solver(cfg, chunk=32)(op, b)
+    torch.cuda.synchronize()
+    say('14a reference: global layered %d^2 x %d, chunked: iters %d  '
+        'relres %.3e (card %s)' % (n, nsrc, iters, relres, card))
+    del op
+    return planes, pplanes, b, x_ref, iters, relres, cfg
+
+
+def true_relres(planes, x, b):
+    'max over the RHS of ||b - A x|| / ||b||, A applied globally (K1).'
+    import torch
+    from zephyr_tpu_torch.ops.stencil import apply_block_stencil_fast
+    r = b - apply_block_stencil_fast(planes, x)
+    num = torch.linalg.vector_norm(r.reshape(r.shape[0], -1), dim=1)
+    den = torch.linalg.vector_norm(b.reshape(b.shape[0], -1), dim=1)
+    return float(torch.max(num / den))
+
+
+def dd_solve(ref, card, base_iters, overlap=16, trace=False):
+    '''
+    14a: ``make_dd_solver`` on a virtual 2x2 ('z', 'x') mesh over the
+    card, 1024^2 shards grown by ``overlap`` a side, a warm-up call and a
+    timed one (each splits the grid, prepares the shards' operators,
+    solves and gathers); relres <= DD_RELRES, the solution within
+    DD_SOLUTION_TOL of the global one, and at overlap DD_ITERS_OVERLAP
+    iterations <= DD_ITERS_FACTOR x phase 5's layered count (printed at
+    every overlap). The shards' operators (``DDOperator``) are then built
+    once more alone and timed: the solve's ms an iteration is the timed
+    call's wall less that preparation; on it the JAX package's single
+    BiCGStab run (``restarts=0``) runs uncounted, to show what the
+    true-residual restarts add. With ``trace`` (14d) the first
+    TRACE_ITERS iterations of the solve run once more on that operator
+    under ``utils.trace()`` and ``annotate('dd_solve')``, the sharded
+    BiCGStab wrapped in ``timeIt``; the exported Chrome trace must name
+    the annotation and K1-K4, and ``stats()`` the wrapped call. The
+    global checks of the solution run uncounted.
+    '''
+    import tempfile
+    import torch
+    from zephyr_tpu_torch import utils
+    from zephyr_tpu_torch.parallel.spatial import (DDOperator,
+                                                   _grid_sharding,
+                                                   make_dd_solver,
+                                                   sharded_bicgstab)
+    planes, pplanes, b, x_ref, _, _, cfg = ref
+    n, nsrc = planes.shape[-1], b.shape[0]
+    mesh, kw = virtual_mesh('2x2')
+    solver = make_dd_solver(mesh, cfg, overlap=overlap, **kw)
+    reset_peak()
+    t0 = time.perf_counter()
+    _, iters0, _ = solver(planes, pplanes, b)            # warm-up
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, iters, relres = solver(planes, pplanes, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = peak_gb()
+    t0 = time.perf_counter()
+    op = DDOperator(_grid_sharding(mesh, 5, 'x', 'z').split(planes),
+                    _grid_sharding(mesh, 5, 'x', 'z').split(pplanes), cfg,
+                    mesh, 'x', 'z', overlap)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    b_sh = _grid_sharding(mesh, 4, 'x', 'z').split(b)
+    with uncounted():
+        rr_true = true_relres(planes, x, b)
+        _, iters1, rr1 = op.solve(b_sh, restarts=0)
+        sol = float(torch.linalg.vector_norm(x - x_ref)
+                    / torch.linalg.vector_norm(x_ref))
+    shard = tuple(op.apply.planes[(0, 0)].shape[-2:])
+    grow = overlap if min(shard) >= 4 * overlap else 0
+    solve_s = wall - t_prep
+    out = {'n': n, 'nsrc': nsrc, 'mesh': mesh.shape, 'overlap': overlap,
+           'shard': shard, 'grown': (shard[0] + 2 * grow,
+                                     shard[1] + 2 * grow),
+           'iters': iters, 'warmup_iters': iters0, 'relres': relres,
+           'global_relres': rr_true, 'solution_rel': sol,
+           'warmup_s': t_warm, 'wall_s': wall, 'prep_s': t_prep,
+           'solve_s': solve_s, 'solves_per_s': nsrc / wall,
+           'ms_per_iter': 1e3 * solve_s / max(iters, 1), 'peak_gb': peak,
+           'phase5_iters': base_iters, 'single_run_iters': iters1,
+           'single_run_relres': rr1}
+    say('14a make_dd_solver layered %d^2 x %d on %s (overlap %d, shards %s '
+        'grown to %s): iters %d (warm-up %d; phase 5 %d)  relres %.3e '
+        '(globally %.3e)  vs global %.3e  wall %.3f s (warm-up %.3f s)  '
+        '%.3f solves/s  prep alone %.3f s  %.2f ms an iteration  (peak '
+        '%.2f GB; card %s)'
+        % (n, nsrc, mesh.shape, overlap, shard, out['grown'], iters, iters0,
+           base_iters, relres, rr_true, sol, wall, t_warm,
+           out['solves_per_s'], t_prep, out['ms_per_iter'], peak, card))
+    say('14a overlap %d: the JAX package\'s single BiCGStab run '
+        '(restarts=0) %d iterations, true relres %.3e; the true-residual '
+        'restarts %d iterations' % (overlap, iters1, rr1, iters - iters1))
+    if not (np.isfinite(relres) and relres <= DD_RELRES
+            and rr_true <= DD_RELRES):
+        fail('14a: relres %.3e, global relres %.3e > %.0e'
+             % (relres, rr_true, DD_RELRES))
+    if not sol <= DD_SOLUTION_TOL:
+        fail('14a: DD solution %.3e from the global one > %.0e'
+             % (sol, DD_SOLUTION_TOL))
+    out['iters_ratio'] = iters / base_iters
+    say('14a overlap %d: %d iterations, %.2fx phase 5\'s %d (bound %dx %s)'
+        % (overlap, iters, out['iters_ratio'], base_iters, DD_ITERS_FACTOR,
+           'held here' if overlap == DD_ITERS_OVERLAP
+           else 'held at overlap %d' % DD_ITERS_OVERLAP))
+    if (overlap == DD_ITERS_OVERLAP
+            and not iters <= DD_ITERS_FACTOR * base_iters):
+        fail('14a: %d DD iterations > %d x phase 5\'s %d'
+             % (iters, DD_ITERS_FACTOR, base_iters))
+    del x
+    if trace:
+        solve = utils.timeIt(sharded_bicgstab)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with utils.trace(tmp):
+                with utils.annotate('dd_solve'):
+                    _, it_t, _ = solve(op.apply, b_sh, op.M, mesh,
+                                       tol=cfg.tol, maxiter=TRACE_ITERS)
+                    torch.cuda.synchronize()
+            t_trace = time.perf_counter() - t0
+            files = [os.path.join(tmp, f) for f in os.listdir(tmp)
+                     if f.endswith('.pt.trace.json')]
+            if len(files) != 1:
+                fail('14d: trace() wrote %s' % os.listdir(tmp))
+            size = os.path.getsize(files[0])
+            with open(files[0]) as fh:
+                names = {e.get('name', '') for e in
+                         json.load(fh).get('traceEvents', [])}
+        found = {k: any(k in nm for nm in names) for k in TRACE_KERNELS}
+        st = [v for k, v in utils.stats().items()
+              if k.endswith('sharded_bicgstab')]
+        out['trace'] = {'seconds': t_trace, 'iters': it_t,
+                        'bytes': size, 'annotation': 'dd_solve' in names,
+                        'kernels': found,
+                        'timeit_calls': st[0]['calls'] if st else 0}
+        say('14d trace of the DD solve\'s first %d iterations: %.2f s '
+            '(untraced %.2f ms an iteration), %d bytes; annotation %s; '
+            'kernels %s; timeIt %s (card %s)'
+            % (it_t, t_trace, out['ms_per_iter'], size, 'dd_solve' in names,
+               found, st, card))
+        if not ('dd_solve' in names and all(found.values()) and st):
+            fail('14d: the trace lacks the annotation or a kernel, or '
+                 'stats() the call: %s' % out['trace'])
+    return out
+
+
+def dd_dpred(n, nsrc, nrec, nfreq, card):
+    '''
+    14b: ``make_dd_dpred`` at n^2 layered on the 2x2 mesh (overlap 16),
+    the top nfreq of phase 7a's eight frequencies (0.6-1.0 x 1500/16),
+    phase 5's nsrc point sources, nrec Kaiser receivers on phase 7a's
+    line, production config; against the single-device
+    ``multifreq_dpred_chunked`` on the same inputs, run uncounted
+    (relative data error <= DD_DATA_TOL, every relres of both <=
+    DD_RELRES). Phase 7a runs
+    each frequency on its own targetGPW grid; on the one 2048^2 grid its
+    lowest frequency, 56.25 Hz (27 cells a wavelength), does not converge
+    in complex64 on either path: the single-device chunked solve stops at
+    8.8e-4 (fault F7) and the DD run stalls (F10;
+    ``tools/probe_port_dd.py``), so the reference would not be one.
+    '''
+    import torch
+    from zephyr_tpu_torch.parallel import multifreq_dpred_chunked
+    from zephyr_tpu_torch.parallel.multifreq import _kaiser_stamps
+    from zephyr_tpu_torch.parallel.spatial import make_dd_dpred
+    from zephyr_tpu_torch.solver.helmholtz import resolve_solver_config
+    cfg = resolve_solver_config(PRODUCTION, torch.complex64)
+    freqs = np.linspace(0.6, 1.0, 8)[8 - nfreq:] * (1500.0 / 16)
+    c = layered_c(n).astype(np.complex64)
+    rho = np.ones((n, n), np.float32)
+    q = np.repeat(point_sources(n, nsrc)[:, 0].cpu().numpy()[None],
+                  nfreq, axis=0)
+    rec_pos = np.stack([np.linspace(n // 8, 7 * n // 8, nrec),
+                        np.full(nrec, float(n // 8))], axis=1)
+    rcols, rvals = _kaiser_stamps((n, n), 1.0, 1.0, rec_pos, 4,
+                                  receiver=True)
+    R = np.zeros((nrec, n * n), np.complex64)
+    np.add.at(R, (np.arange(nrec)[:, None], rcols), rvals)
+    stats = {}
+    t0 = time.perf_counter()
+    with uncounted():
+        d_ref = multifreq_dpred_chunked(c, rho, freqs, q, R, config=cfg,
+                                        chunk=32, device=DEV, stats=stats)
+        torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    ref = {'wall_s': t_ref, 'iters': stats['iters'],
+           'relres': stats['relres']}
+    mesh, kw = virtual_mesh('2x2')
+    dpred = make_dd_dpred(mesh, freqs, cfg, overlap=16, **kw)
+    reset_peak()
+    t0 = time.perf_counter()
+    d, info = dpred(c, rho, q, R.reshape(nrec, n, n))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    d = d.cpu().numpy()
+    err = float(np.linalg.norm(d - d_ref) / np.linalg.norm(d_ref))
+    out = {'n': n, 'freqs': list(freqs), 'nsrc': nsrc, 'nrec': nrec,
+           'info': info, 'wall_s': wall, 'data_rel': err,
+           'peak_gb': peak_gb(), 'reference': ref}
+    say('14b DD dpred layered %d^2, %s Hz x %d src x %d rec on %s: '
+        '(iters, relres) per freq %s  wall %.2f s  data vs single device '
+        '%.3e (limit %.0e)  peak %.2f GB; single device %.2f s, iters %s, '
+        'relres %s (card %s)'
+        % (n, ['%.2f' % f for f in freqs], nsrc, nrec, mesh.shape, info,
+           wall, err, DD_DATA_TOL, out['peak_gb'], t_ref, stats['iters'],
+           ['%.3e' % r for r in stats['relres']], card))
+    if not (np.isfinite(d).all() and d.shape == (nfreq, nsrc, nrec)):
+        fail('14b: data of shape %s, finite %s' % (d.shape,
+                                                   np.isfinite(d).all()))
+    if not (err <= DD_DATA_TOL
+            and all(rr <= DD_RELRES for _, rr in info)
+            and all(rr <= DD_RELRES for rr in stats['relres'])):
+        fail('14b: data error %.3e, relres %s, single device %s'
+             % (err, info, stats['relres']))
+    return out
+
+
+def sharded_step_reference(n, nfreq, nsrc, nrec, card):
+    '''
+    14c's inputs and reference: the bench's ``gradient_marmousi`` size
+    (n^2 Marmousi, nfreq frequencies, nsrc Kaiser sources, nrec receivers,
+    phase 7a's geometry, zero observed data), the production config with
+    the auto x-panel rule; the misfit and its gradient w.r.t. c by
+    ``fwi_misfit`` and ``torch.autograd.grad`` on one device.
+    '''
+    import torch
+    from zephyr_tpu_torch.parallel import fwi_misfit
+    from zephyr_tpu_torch.solver.helmholtz import SolverConfig, resolve_panels
+    c = marmousi_c(n).astype(np.float64)
+    cfg = resolve_panels(SolverConfig(**PRODUCTION), c)
+    freqs = np.linspace(0.6, 1.0, nfreq) * (1500.0 / 16)
+    rng = np.random.default_rng(2)
+    src_pos = rng.integers(n // 8, 7 * n // 8,
+                           size=(nsrc, 2)).astype(np.float64)
+    rec_pos = np.stack([np.linspace(n // 8, 7 * n // 8, nrec),
+                        np.full(nrec, float(n // 8))], axis=1)
+    q, R = kaiser_q_R(n, nfreq, src_pos, rec_pos)
+    dobs = np.zeros((nfreq, nsrc, nrec), np.complex64)
+    rho = np.ones((n, n), np.float32)
+    inputs = dict(c=c, rho=rho, freqs=freqs, q=q, R=R, dobs=dobs, cfg=cfg)
+    reset_peak()
+    t0 = time.perf_counter()
+    ct = torch.as_tensor(c, dtype=torch.float32, device=DEV)
+    ct.requires_grad_(True)
+    m = fwi_misfit(ct, dobs, rho, freqs, q, R, config=cfg, device=DEV)
+    g, = torch.autograd.grad(m, ct)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = {'misfit': float(m.detach()), 'grad': g, 'wall_s': wall,
+           'peak_gb': peak_gb(), 'panels': cfg.strat_panels}
+    say('14c reference: fwi_misfit + autograd on one device, %d^2 '
+        'marmousi (%d panels), %d freq x %d src x %d rec: misfit %.6e  '
+        '|grad| %.6e  wall %.2f s  peak %.2f GB (card %s)'
+        % (n, cfg.strat_panels, nfreq, nsrc, nrec, ref['misfit'],
+           float(torch.linalg.vector_norm(g)), wall, ref['peak_gb'], card))
+    return inputs, ref
+
+
+def sharded_step(inputs, ref, card, freq=4, src=2):
+    '''
+    14c: ``make_sharded_fwi_step`` on a virtual (freq, src) mesh over the
+    card, one step (lr 0), against the one-device reference: misfit
+    within STEP_MISFIT_TOL, gradient within STEP_GRAD_TOL (relative
+    2-norm). Returns (numbers, (c_next, misfit, grad)).
+    '''
+    import torch
+    from zephyr_tpu_torch.parallel import make_mesh, make_sharded_fwi_step
+    mesh = make_mesh(freq=freq, src=src,
+                     devices=[torch.device(DEV, 0)] * (freq * src))
+    step = make_sharded_fwi_step(mesh, inputs['rho'], inputs['freqs'],
+                                 inputs['q'], inputs['R'], inputs['dobs'],
+                                 lr=0.0, config=inputs['cfg'])
+    c = torch.as_tensor(inputs['c'], dtype=torch.float32, device=DEV)
+    reset_peak()
+    t0 = time.perf_counter()
+    c1, misfit, grad = step(c)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m_rel = abs(float(misfit) - ref['misfit']) / abs(ref['misfit'])
+    g_rel = float(torch.linalg.vector_norm(grad - ref['grad'])
+                  / torch.linalg.vector_norm(ref['grad']))
+    n = c.shape[-1]
+    out = {'n': n, 'mesh': mesh.shape, 'nfreq': len(inputs['freqs']),
+           'nsrc': inputs['q'].shape[1], 'misfit': float(misfit),
+           'misfit_rel': m_rel, 'grad_rel': g_rel, 'wall_s': wall,
+           'peak_gb': peak_gb(), 'reference_wall_s': ref['wall_s']}
+    say('14c sharded FWI step %d^2 marmousi on %s: misfit %.6e (rel %.3e, '
+        'limit %.0e)  grad rel %.3e (limit %.0e)  wall %.2f s (one device '
+        '%.2f s)  peak %.2f GB (card %s)'
+        % (n, mesh.shape, float(misfit), m_rel, STEP_MISFIT_TOL, g_rel,
+           STEP_GRAD_TOL, wall, ref['wall_s'], out['peak_gb'], card))
+    if not (bool(torch.isfinite(grad).all()) and m_rel <= STEP_MISFIT_TOL
+            and g_rel <= STEP_GRAD_TOL):
+        fail('14c: misfit rel %.3e, gradient rel %.3e' % (m_rel, g_rel))
+    return out, (c1, misfit, grad)
+
+
+def checkpoint_roundtrip(state, card):
+    '''
+    14d: InversionCheckpointer saves 14c's (c_next, misfit, grad) to a
+    temporary directory and restores them bit for bit (as CPU tensors).
+    '''
+    import tempfile
+    import torch
+    from zephyr_tpu_torch.utils import InversionCheckpointer
+    names = ('c_next', 'misfit', 'grad')
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = InversionCheckpointer(tmp)
+        t0 = time.perf_counter()
+        ck.save(1, dict(zip(names, state)))
+        step, back = ck.restore()
+        secs = time.perf_counter() - t0
+    same = {k: bool(torch.equal(back[k], v.detach().cpu()))
+            for k, v in zip(names, state)}
+    say('14d checkpoint of 14c\'s state: step %s, bit for bit %s, %.2f s '
+        '(card %s)' % (step, same, secs, card))
+    if not (step == 1 and all(same.values())):
+        fail('14d: the checkpoint did not restore bit for bit: %s' % same)
+    return {'step': step, 'bit_for_bit': same, 'seconds': secs}
+
+
+def entry_dryrun(card):
+    '''
+    14d: ``zephyr_tpu_torch.entry``: ``entry()``'s forward step on the
+    card (finite data of shape (2, 2, 3)) and ``dryrun_multichip(4)`` on
+    a virtual mesh of the card, within its bounds.
+    '''
+    import torch
+    from zephyr_tpu_torch import entry
+    t0 = time.perf_counter()
+    fn, args = entry.entry()
+    d = fn(*args)
+    torch.cuda.synchronize()
+    if not (tuple(d.shape) == (2, 2, 3) and bool(torch.isfinite(d).all())):
+        fail('14d: entry() gave %s' % (d,))
+    t_entry = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(4)
+    t_dry = time.perf_counter() - t0
+    say('14d entry() %.2f s; dryrun_multichip(4) %.2f s: %s (card %s)'
+        % (t_entry, t_dry, json.dumps(dry), card))
+    return {'entry_s': t_entry, 'dryrun_s': t_dry, 'dryrun': dry}
+
+
+def phase14(card, layered_iters=None):
+    '''
+    Phase 14 (the scale-out layer) at its sizes: returns (results, the
+    kernel launches over the spatial path: 14a-c and the traced solve;
+    the references, the sharded-apply checks, 14a's global checks and
+    its single-run comparison left out).
+    '''
+    import torch
+    from zephyr_tpu_torch.ops import cuda_kernels as ck
+    base = layered_iters or PHASE5_LAYERED_ITERS
+    t14 = time.perf_counter()
+    ref = dd_reference(2048, 16, card)
+    out = {'reference_iters': ref[4], 'reference_relres': ref[5],
+           'apply': sharded_apply_check(ref[0], 16, card)}
+    step_in, step_ref = sharded_step_reference(512, 8, 16, 64, card)
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    out['dd_solve'] = {ov: dd_solve(ref, card, base, overlap=ov,
+                                    trace=ov == DD_OVERLAPS[0])
+                       for ov in DD_OVERLAPS}
+    del ref
+    torch.cuda.empty_cache()
+    out['dd_dpred'] = dd_dpred(2048, 16, 64, 2, card)
+    out['fwi_step'], state = sharded_step(step_in, step_ref, card)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    out['k1_copies'] = ck.COPIES['apply_stencil']
+    say('phase 14: K1 calls whose operands were copied: %d'
+        % out['k1_copies'])
+    if out['k1_copies']:
+        fail('phase 14: %d K1 calls copied their operands'
+             % out['k1_copies'])
+    out['checkpoint'] = checkpoint_roundtrip(state, card)
+    del state, step_in, step_ref
+    torch.cuda.empty_cache()
+    out['entry'] = entry_dryrun(card)
+    out['seconds'] = time.perf_counter() - t14
+    say('phase 14: %.1f s' % out['seconds'])
+    return out, launches
+
+
 #: the kernels each main path must launch (phase 6)
 SCALAR_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                'prolong_add_smooth', 'jacobi_sweep', 'restrict', 'prolong')
@@ -2652,6 +3182,8 @@ CONFIGS_PATH = ('apply_stencil', 'presmooth_restrict', 'prolong_add_smooth',
 CONFIGS_TTI_PATH = ('apply_block_stencil',)
 FRONTEND_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                  'prolong_add_smooth', 'jacobi_sweep')
+SPATIAL_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
+                'prolong_add_smooth')
 
 
 def main():
@@ -2773,6 +3305,8 @@ def main():
     launches['frontend'] = dict(ck.LAUNCHES)
     cf['seconds'] = time.perf_counter() - t13
     say('phase 13: %.1f s' % cf['seconds'])
+    # phase 14: the scale-out layer, with its own counts
+    sp, launches['spatial'] = phase14(card, runs[1]['iters'])
 
     # phase 6
     for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH),
@@ -2782,7 +3316,8 @@ def main():
                         ('tti_gradient', TTI_GRADIENT_PATH),
                         ('configs', CONFIGS_PATH),
                         ('configs_tti', CONFIGS_TTI_PATH),
-                        ('frontend', FRONTEND_PATH)):
+                        ('frontend', FRONTEND_PATH),
+                        ('spatial', SPATIAL_PATH)):
         say('launches over the %s path: %s'
             % (path, json.dumps(launches[path])))
         for name in names:
@@ -2809,6 +3344,7 @@ def main():
     say(json.dumps({'multifreq': mf, 'card': card}))
     say(json.dumps({'tti_gradient': tg, 'card': card}))
     say(json.dumps({'configs': cf, 'card': card}))
+    say(json.dumps({'spatial': sp, 'card': card}))
 
     kernels = []
     for name, (tag, src, repl) in KERNELS.items():

@@ -586,41 +586,6 @@ def test_anisotropic_fields_and_source_match_jax():
     assert not np.allclose(st.stamps(locs)[2], iso)
 
 
-def _oracle_config(epsval, deltaval):
-    nx, nz = 100, 200
-    return {'c': 2000. * np.ones((nz, nx)), 'rho': np.ones((nz, nx)),
-            'freq': 2e2, 'nx': nx, 'nz': nz, 'dx': 1., 'dz': 1.,
-            'theta': np.zeros((nz, nx)), 'eps': epsval * np.ones((nz, nx)),
-            'delta': deltaval * np.ones((nz, nx)), 'nPML': 10, 'cPML': 1e3,
-            'freeSurf': (False, False, False, False), 'device': 'cpu'}
-
-
-@pytest.mark.parametrize('aniso', [(0., 0.), (0.2, 0.2)],
-                         ids=['isotropic', 'elliptical'])
-def test_eurus_oracle(aniso):
-    '''
-    The reference's test_Eurus.py accuracy test in the port (default
-    SolverConfig, complex128): interior-window error < 3e-2.
-    '''
-    config = _oracle_config(*aniso)
-    sloc = np.array([[25, 25]])
-    uE = (tb.Eurus(config) * tb.StackedSimpleSource(config)(sloc)).ravel()
-    uAH = tb.AnalyticalHelmholtz(config)(sloc)
-    segA = uAH.reshape((200, 100))[40:180, 40:80]
-    segE = uE[:20000].reshape((200, 100))[40:180, 40:80]
-    rel = (segA - segE) / abs(segA)
-    assert np.sqrt((rel.conj() * rel).sum()).real / rel.size < 3e-2
-
-
-def test_array_config_oracle_matches_jax():
-    config = _oracle_config(0.2, 0.1)
-    config['theta'] = 0.25 * np.ones((200, 100))
-    loc = np.array([[25., 30.]])
-    g_t = tb.AnalyticalHelmholtz(config)(loc)
-    g_j = np.asarray(jb.AnalyticalHelmholtz(config)(loc))
-    assert _rel(g_t, g_j) < 1e-12
-
-
 # --- fault F4: the eurus_layered row in both packages --------------------
 
 F4_N, F4_CHUNKS = 256, 6

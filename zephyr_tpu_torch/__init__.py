@@ -14,11 +14,14 @@ the same path:
                               ky sum MiniZephyr25D, Eurus, sources, the
                               analytical oracle, grid interpolation, the
                               MultiFreq distributors)
-- zephyr_tpu_torch.parallel — multi-frequency modelling on one device:
-                              per-frequency operators and solves, the
-                              differentiable forward map and misfit, the
-                              chunked and 2.5D forward modelling, the
-                              chunked adjoint-state FWI gradient
+- zephyr_tpu_torch.parallel — multi-frequency modelling: per-frequency
+                              operators and solves, the differentiable
+                              forward map and misfit, the chunked and
+                              2.5D forward modelling, the chunked
+                              adjoint-state FWI gradient; device meshes
+                              (virtual on one card, multi-process over
+                              torch.distributed), the sharded FWI step
+                              and the spatial domain decomposition
 - zephyr_tpu_torch.middleware — the 2D and 2.5D inverse problems:
                               surveys, problems with exact Jvec/Jtvec,
                               the inversion drivers (frequency
@@ -26,6 +29,11 @@ the same path:
 - zephyr_tpu_torch.frontend — the job classes (OmegaJob and the rest)
                               and the ``zephyr-tpu-torch`` CLI
                               (argparse; ``--device``, default cuda)
+- zephyr_tpu_torch.utils    — profiling (timeIt, trace, annotate) and
+                              checkpoints
+- zephyr_tpu_torch.entry    — entry() and dryrun_multichip(n), the
+                              counterpart of __graft_entry__.py
+- zephyr_tpu_torch.examples — the JAX package's examples/*.py
 - zephyr_tpu_torch.convert  — the JAX package's prepared state into the
                               port's
 - zephyr_tpu_torch/csrc     — the CUDA C++ kernels K1-K9 (sm_90a), one

@@ -11,8 +11,8 @@ unchanged one is reused. Importing this module needs neither ``nvcc``
 nor a GPU.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else (K8 copies an operand that is not contiguous first, and
-counts it in ``COPIES``); passes complex64 tensors in place (the kernels
+anything else (K1 and K8 copy an operand that is not contiguous first,
+and count it in ``COPIES``); passes complex64 tensors in place (the kernels
 read them as float2 re/im pairs); allocates its outputs with ``torch.empty``;
 launches on ``torch.cuda.current_stream()``; raises if the launch
 reports an error; and adds one to its entry of ``LAUNCHES``. A failure
@@ -59,6 +59,11 @@ LAUNCHES = {'apply_stencil': 0, 'presmooth_restrict': 0, 'pcr_sweep': 0,
             'prolong_add_smooth': 0, 'jacobi_sweep': 0, 'jacobi_sweep2': 0,
             'jacobi_sweep2_zero': 0, 'restrict': 0, 'prolong': 0,
             'apply_block_stencil': 0, 'presmooth_residual': 0}
+
+#: K1's and K8's input copies since the last ``reset_launches()``: the
+#: calls whose u or planes were not contiguous and were copied before the
+#: launch
+COPIES = {'apply_stencil': 0, 'apply_block_stencil': 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -207,9 +212,16 @@ def _launch(name, fn, *args):
 
 
 def apply_stencil(planes, u):
-    'K1: (A u)[r] for planes (9, nz, nx), u (R, nz, nx), complex64.'
+    '''
+    K1: (A u)[r] for planes (9, nz, nx), u (R, nz, nx), complex64. An
+    operand that is not contiguous is copied first (counted in
+    ``COPIES``).
+    '''
 
     R, nz, nx = _field_dims(u)
+    if not (u.is_contiguous() and planes.is_contiguous()):
+        COPIES['apply_stencil'] += 1
+        u, planes = u.contiguous(), planes.contiguous()
     dev = u.device
     _check('u', u, torch.complex64, (R, nz, nx), dev)
     _check('planes', planes, torch.complex64, (9, nz, nx), dev)
@@ -547,9 +559,6 @@ def prolong(vc, nz, nx):
     return out
 
 
-#: K8's input copies since the last ``reset_launches()``: the calls whose
-#: u or planes were not contiguous and were copied before the launch
-COPIES = {'apply_block_stencil': 0}
 #: the blocks K8 should launch on each SM: one wave of the four that fit
 #: an SM at a time
 K8_BLOCKS_PER_SM = 4

@@ -652,3 +652,71 @@ def fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs,
     if timed:
         stats.update(shapes=plans, iters=solve_iters, seconds=tacc)
     return misfit, grad.cpu().numpy()
+
+
+def make_sharded_fwi_step(mesh, rho, freqs, q, R, dobs, lr=1.0,
+                          config=SolverConfig(), premul=None,
+                          Q=np.inf, freqBase=0.0, eurus_params=None,
+                          **plane_kwargs):
+    '''
+    Build an FWI gradient-descent step over a ('freq', 'src') or
+    ('host', 'freq', 'src') mesh:
+        step(c) -> (c_next, misfit, grad)
+
+    The source fields q (nfreq, nsrc, nz, nx), the observed data dobs
+    (nfreq, nsrc, nrec) and the premultipliers split over the mesh by
+    ``freq_src_sharding`` (frequencies over 'freq', and over 'host' first
+    on a multi-process mesh; sources over 'src'); the model, density and
+    receiver matrix R (nrec, nz*nx) are replicated. Each mesh coordinate
+    of this process runs the differentiable ``fwi_misfit`` (autograd
+    through ``solve_batched``) on its block, on its device; the partial
+    misfits and gradients are summed in a fixed order on the model's
+    device and over 'host' by ``dist.all_reduce`` (``Mesh.psum``),
+    matching the reference's gradient accumulation over frequencies
+    (problem.py:152,162). The working precision is that of ``q``; c_next,
+    misfit and grad are tensors on the model's device (the mesh's first
+    device for a numpy model).
+    '''
+
+    from .mesh import Sharding, freq_src_sharding, replicated
+
+    fs = freq_src_sharding(mesh)
+    by_freq = Sharding(mesh, fs.spec[:1])
+    rep = replicated(mesh)
+    cdtype = _complex_dtype(q)
+    rdtype = torch.empty((), dtype=cdtype).real.dtype
+    freqs = np.asarray(_freq_list(freqs))
+    if isinstance(R, torch.Tensor):
+        R = R.detach().cpu().numpy()
+    blocks = {}
+    for co in mesh.coords():
+        dev = resolve_device(mesh.device(co))
+        blocks[co] = dict(
+            dev=dev, q=fs.shard(q, co, cdtype),
+            dobs=fs.shard(dobs, co, cdtype),
+            freqs=freqs[by_freq.block(freqs.shape, co)],
+            premul=(None if premul is None
+                    else by_freq.shard(np.asarray(premul), co, cdtype)),
+            rho=rep.shard(np.real(np.asarray(rho)), co, rdtype))
+
+    def step(c):
+        if isinstance(c, torch.Tensor):
+            dev0 = c.device
+        else:
+            dev0 = mesh.device(mesh.coords()[0])
+            c = torch.as_tensor(np.asarray(c))
+        c = c.detach().to(device=dev0, dtype=rdtype)
+        misfits, grads = {}, {}
+        for co, blk in blocks.items():
+            cl = c.to(blk['dev']).detach().requires_grad_(True)
+            m = fwi_misfit(cl, blk['dobs'], blk['rho'], blk['freqs'],
+                           blk['q'], R, config=config, premul=blk['premul'],
+                           Q=Q, freqBase=freqBase, eurus_params=eurus_params,
+                           device=blk['dev'], **plane_kwargs)
+            g, = torch.autograd.grad(m, cl)
+            misfits[co], grads[co] = m.detach(), g
+        misfit = mesh.psum(misfits).to(dev0)
+        grad = mesh.psum(grads).to(dev0)
+        return c - lr * grad, misfit, grad
+
+    return step
