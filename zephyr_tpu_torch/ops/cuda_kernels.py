@@ -41,6 +41,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'zephyr_tpu_torch_kernels'
@@ -152,7 +154,8 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
+        with span('kernels.load'):
+            lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {
             'zt_apply_stencil': [P, P, P, I, I, I, P],

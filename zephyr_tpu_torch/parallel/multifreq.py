@@ -27,8 +27,8 @@ Every entry point runs on the card unless the caller passes
 their nonzeros: no matmul, so no TF32 setting reaches the data.
 '''
 
+import contextlib
 import math
-import time
 
 import numpy as np
 import torch
@@ -42,6 +42,7 @@ from ..ops.stencil import plane_products, transpose_block_planes
 from ..solver.helmholtz import (SolverConfig, make_chunked_solver,
                                 prepare_operator, resolve_panels,
                                 shifted_velocity, solve_batched)
+from ..utils.profiling import recording, span
 
 
 def viscous_velocity(c, freq, Q=np.inf, freqBase=0.0):
@@ -442,8 +443,9 @@ def fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs,
     plus the device of the solves (``device``, the card unless the
     caller passes 'cpu') and an optional ``stats``
     dict that receives the per-frequency grids, the (forward, adjoint)
-    iteration counts of every source chunk and the host seconds of each
-    phase.
+    iteration counts of every source chunk and the seconds of each phase
+    (spans timed by CUDA events on the card, the host clock on the CPU;
+    ``stats`` turns tracing on for the call, ``utils.profiling``).
 
     With ``target_gpw`` set (requires ``src_pos``/``rec_pos`` physical
     (x, z) positions and ``cmin``), every frequency solves on its own
@@ -591,18 +593,11 @@ def fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs,
         return stamp_cache[shape]
 
     timed = stats is not None
-    tacc = {}
+    # the phases of ``stats``: spans timed by CUDA events on the card
+    cuda = dev if timed and dev.type == 'cuda' else None
 
-    def _tic():
-        if timed and dev.type == 'cuda':
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
-
-    def _toc(key, t0):
-        if timed:
-            if dev.type == 'cuda':
-                torch.cuda.synchronize(dev)
-            tacc[key] = tacc.get(key, 0.0) + (time.perf_counter() - t0)
+    def phase(key):
+        return span('fwi.' + key, cuda=cuda)
 
     R_t = (None if adapted
            else torch.as_tensor(np.asarray(R), device=dev).to(cdtype))
@@ -610,47 +605,45 @@ def fwi_misfit_grad_chunked(c, rho, freqs, q, R, dobs,
     grad = torch.zeros((nz, nx), dtype=c_t.dtype, device=dev)
     pm = None if premul is None else np.asarray(premul).ravel()
     solve_iters = []
-    for i, f in enumerate(np.asarray(freqs)):
-        f = float(f)
-        shape = plans[i]
-        sf = fns[shape]
-        t0 = _tic()
-        op_f, op_t = sf['prep'](f)
-        _toc('prep', t0)
-        if adapted:
-            q_i, rcols, rvals = _stamps_for(shape)
-        else:
-            q_i = np.asarray(q[i])[:, None]
-        for s0 in range(0, nsrc, chunk):
-            s1 = min(s0 + chunk, nsrc)
+    with recording() if timed else contextlib.nullcontext() as rec:
+        mark = len(rec.spans) if timed else 0
+        for i, f in enumerate(np.asarray(freqs)):
+            f = float(f)
+            shape = plans[i]
+            sf = fns[shape]
+            with phase('prep'):
+                op_f, op_t = sf['prep'](f)
             if adapted:
-                b = q_i[s0:s1]
+                q_i, rcols, rvals = _stamps_for(shape)
             else:
-                b = torch.as_tensor(np.ascontiguousarray(q_i[s0:s1]),
-                                    device=dev).to(cdtype)
-            if pm is not None:
-                b = b * complex(pm[i])
-            t0 = _tic()
-            x, it_f, _ = sf['solver'](op_f, b)
-            _toc('fwd_solve', t0)
-            dobs_f = torch.as_tensor(np.ascontiguousarray(
-                np.asarray(dobs)[i, s0:s1]), device=dev).to(cdtype)
-            t0 = _tic()
-            if adapted:
-                t, mis = sf['residual_st'](x, rcols, rvals, dobs_f)
-            else:
-                t, mis = sf['residual'](x, R_t, dobs_f)
-            misfit += float(mis)
-            _toc('residual', t0)
-            t0 = _tic()
-            w, it_a, _ = sf['solver'](op_t, t)
-            _toc('adj_solve', t0)
-            t0 = _tic()
-            grad += sf['grad'](f, w, x)
-            _toc('grad_term', t0)
-            solve_iters.append((i, s0, int(it_f), int(it_a)))
+                q_i = np.asarray(q[i])[:, None]
+            for s0 in range(0, nsrc, chunk):
+                s1 = min(s0 + chunk, nsrc)
+                if adapted:
+                    b = q_i[s0:s1]
+                else:
+                    b = torch.as_tensor(np.ascontiguousarray(q_i[s0:s1]),
+                                        device=dev).to(cdtype)
+                if pm is not None:
+                    b = b * complex(pm[i])
+                with phase('fwd_solve'):
+                    x, it_f, _ = sf['solver'](op_f, b)
+                dobs_f = torch.as_tensor(np.ascontiguousarray(
+                    np.asarray(dobs)[i, s0:s1]), device=dev).to(cdtype)
+                with phase('residual'):
+                    if adapted:
+                        t, mis = sf['residual_st'](x, rcols, rvals, dobs_f)
+                    else:
+                        t, mis = sf['residual'](x, R_t, dobs_f)
+                    misfit += float(mis)
+                with phase('adj_solve'):
+                    w, it_a, _ = sf['solver'](op_t, t)
+                with phase('grad_term'):
+                    grad += sf['grad'](f, w, x)
+                solve_iters.append((i, s0, int(it_f), int(it_a)))
     if timed:
-        stats.update(shapes=plans, iters=solve_iters, seconds=tacc)
+        stats.update(shapes=plans, iters=solve_iters,
+                     seconds=rec.seconds('fwi.', since=mark))
     return misfit, grad.cpu().numpy()
 
 

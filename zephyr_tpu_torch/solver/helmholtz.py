@@ -63,6 +63,17 @@ family, K8 for the residuals and the transposed line-smoothed V-cycle).
 
 Configurations whose path needs a part that is not ported yet raise
 NotImplementedError naming it, on every device.
+
+With tracing on (``utils.profiling.recording``) the solve opens spans at
+its layer boundaries: ``helmholtz.prepare_operator`` (children
+``multigrid.build_hierarchy``, ``helmholtz.coarsen_true``,
+``stratified.precompute``; it closes after a device synchronise), the
+chunked solve's ``helmholtz.solve``, ``helmholtz.chunk`` (its iterations,
+worst relres and, per right-hand side, iterations and true relres) and
+``helmholtz.true_residual``, and a preconditioner application's
+``precond.apply`` (children ``precond.fine``, ``precond.spectral``,
+``precond.coarse``, or ``precond.vcycle`` in the 'add' and 'mult' forms).
+The chunked solve's host reads count in ``solver.syncs``.
 '''
 
 from typing import NamedTuple, Any
@@ -70,6 +81,7 @@ from typing import NamedTuple, Any
 import numpy as np
 import torch
 
+from ..utils.profiling import add, enabled, span
 from ..ops.stencil import (CENTER, OFFSETS, apply_block_stencil_fast,
                            block_plane_products, transpose_block_planes)
 from .krylov import (bicgstab, fgmres, fgmres_cycle, gmres, gmres_cycle,
@@ -370,7 +382,8 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
     correction (see ``multigrid.build_hierarchy``), in the hierarchy and
     in the Galerkin-coarsened true planes. Everything but the planes
     themselves is built from detached tensors: the preconditioner takes
-    no part in differentiation.
+    no part in differentiation. With tracing on, the span of the
+    preparation closes after a device synchronise, so it times the work.
 
     Block (B=2) operators smooth with alternating z/x lines unless
     ``mg_smoother='jacobi'``. Their stratified solve is the block
@@ -381,6 +394,16 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
     follows the scalar rules.
     '''
 
+    with span('helmholtz.prepare_operator'):
+        op = _prepare_operator(planes, precond_planes, config,
+                               with_transpose, interior_mask)
+        if enabled() and planes.is_cuda:
+            torch.cuda.synchronize(planes.device)
+    return op
+
+
+def _prepare_operator(planes, precond_planes, config, with_transpose,
+                      interior_mask):
     B = planes.shape[0]
     check_config(config, B)
     if precond_planes is None:
@@ -390,31 +413,34 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
     imask = None if interior_mask is None else interior_mask.detach()
     smoother = ('line' if B > 1 and config.mg_smoother in ('auto', 'line')
                 else 'jacobi')
-    hier = build_hierarchy(pp, min_size=config.mg_min_size,
-                           coarse=config.mg_coarse, smoother=smoother,
-                           interior_mask=imask)
+    with span('multigrid.build_hierarchy'):
+        hier = build_hierarchy(pp, min_size=config.mg_min_size,
+                               coarse=config.mg_coarse, smoother=smoother,
+                               interior_mask=imask)
     hierT = transpose_hierarchy(hier) if with_transpose else None
     if config.precond == 'mg':
         return HelmholtzOperator(planes, hier, hierT=hierT)
     planesT = transpose_block_planes(tp) if with_transpose else None
     if B == 2 and config.fft_mode == 'strat':
-        strat = pcr_precompute_block(*stratified_coeffs_block(
-            tp, pp, config.shift, config.fft_shift))
+        with span('stratified.precompute'):
+            strat = pcr_precompute_block(*stratified_coeffs_block(
+                tp, pp, config.shift, config.fft_shift))
         return HelmholtzOperator(planes, hier, strat, None, hierT, planesT)
 
     ctrue = None
     if config.fft_scale > 1 or config.hybrid_comp == 'fused':
-        nz, nx = tp.shape[-2:]
-        mask = _ring_mask(nz, nx, tp.real.dtype, tp.device)
-        if imask is not None:
-            mask = mask * imask.to(mask.dtype)
-        ctrue = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(tp,
-                                                                   mask)))
-        if len(hier.levels) > 1:
-            cpp = hier.levels[1].planes
-        else:
-            cpp = _fix_empty_rows(galerkin_coarsen(_mask_ring_planes(pp,
-                                                                     mask)))
+        with span('helmholtz.coarsen_true'):
+            nz, nx = tp.shape[-2:]
+            mask = _ring_mask(nz, nx, tp.real.dtype, tp.device)
+            if imask is not None:
+                mask = mask * imask.to(mask.dtype)
+            ctrue = _fix_empty_rows(galerkin_coarsen(
+                _mask_ring_planes(tp, mask)))
+            if len(hier.levels) > 1:
+                cpp = hier.levels[1].planes
+            else:
+                cpp = _fix_empty_rows(galerkin_coarsen(
+                    _mask_ring_planes(pp, mask)))
     if config.fft_scale > 1:
         src_true, src_pp = ctrue, cpp
     else:
@@ -424,22 +450,23 @@ def prepare_operator(planes, precond_planes=None, config=SolverConfig(),
         return HelmholtzOperator(
             planes, hier, None, cplanes, hierT, planesT,
             _fft_symbol_inverse(src_true, src_pp, config))
-    if config.strat_panels > 1:
-        l, d, u = stratified_coeffs_panels(
-            src_true, src_pp, config.shift, config.fft_shift,
-            config.strat_panels, config.strat_overlap,
-            dst=config.strat_taper == 'dst')
-        w_solve = panel_layout(src_true.shape[-1], config.strat_panels,
-                               config.strat_overlap)[1]
-        if config.strat_taper == 'dst':
-            w_solve *= 2
-    else:
-        l, d, u = stratified_coeffs(src_true, src_pp, config.shift,
-                                    config.fft_shift)
-        w_solve = src_true.shape[-1]
-    use_dft = (config.strat_dft == 'dft'
-               or (config.strat_dft == 'auto' and w_solve <= 2048))
-    strat = pcr_precompute(l, d, u, dft=w_solve if use_dft else None)
+    with span('stratified.precompute'):
+        if config.strat_panels > 1:
+            l, d, u = stratified_coeffs_panels(
+                src_true, src_pp, config.shift, config.fft_shift,
+                config.strat_panels, config.strat_overlap,
+                dst=config.strat_taper == 'dst')
+            w_solve = panel_layout(src_true.shape[-1], config.strat_panels,
+                                   config.strat_overlap)[1]
+            if config.strat_taper == 'dst':
+                w_solve *= 2
+        else:
+            l, d, u = stratified_coeffs(src_true, src_pp, config.shift,
+                                        config.fft_shift)
+            w_solve = src_true.shape[-1]
+        use_dft = (config.strat_dft == 'dft'
+                   or (config.strat_dft == 'auto' and w_solve <= 2048))
+        strat = pcr_precompute(l, d, u, dft=w_solve if use_dft else None)
     return HelmholtzOperator(planes, hier, strat, cplanes, hierT, planesT)
 
 
@@ -467,8 +494,18 @@ def _make_precond(op, config, transpose=False):
     back to 'mult'). P^T = F T^{-T} F^{-1}, the transposed tridiagonal
     (or, for a block operator, block-tridiagonal) family reduced once
     here in full precision; for the symbol solve fft2(S^T ifft2 r).
+    Each application is a span ``precond.apply``.
     '''
 
+    M = _compose_precond(op, config, transpose)
+
+    def apply(r):
+        with span('precond.apply'):
+            return M(r)
+    return apply
+
+
+def _compose_precond(op, config, transpose):
     is_block = op.planes.shape[0] == 2
     check_config(config, op.planes.shape[0])
     hier = op.hierT if transpose else op.hier
@@ -521,12 +558,16 @@ def _make_precond(op, config, transpose=False):
         cpl = op.cplanes
 
         def M(r):
-            u, rc = presmooth_restrict(lvl0, r, omega, nu1)
-            xc = P0(rc)
-            rc2 = rc - apply_block_stencil_fast(cpl, xc)
-            xc = xc + v_cycle(hier, rc2, omega=omega, nu1=nu1, nu2=nu2,
-                              level=1, coarse_iters=coarse_iters)
-            return prolong_add_smooth(lvl0, u, r, xc, omega, nu2)
+            with span('precond.fine'):
+                u, rc = presmooth_restrict(lvl0, r, omega, nu1)
+            with span('precond.spectral'):
+                xc = P0(rc)
+            with span('precond.coarse'):
+                rc2 = rc - apply_block_stencil_fast(cpl, xc)
+                xc = xc + v_cycle(hier, rc2, omega=omega, nu1=nu1, nu2=nu2,
+                                  level=1, coarse_iters=coarse_iters)
+            with span('precond.fine'):
+                return prolong_add_smooth(lvl0, u, r, xc, omega, nu2)
 
         return M
 
@@ -542,13 +583,18 @@ def _make_precond(op, config, transpose=False):
 
     if config.hybrid_comp == 'add':
         def M(r):
-            return P(r) + mg(r)
+            with span('precond.spectral'):
+                x1 = P(r)
+            with span('precond.vcycle'):
+                return x1 + mg(r)
         return M
 
     def M(r):
-        x1 = P(r)
-        r2 = r - apply_block_stencil_fast(planes, x1)
-        return x1 + mg(r2)
+        with span('precond.spectral'):
+            x1 = P(r)
+        with span('precond.vcycle'):
+            r2 = r - apply_block_stencil_fast(planes, x1)
+            return x1 + mg(r2)
 
     return M
 
@@ -711,7 +757,10 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
     iters, relres)`` with b_batch (R, B, nz, nx) a tensor on the
     operator's device, iters the summed per-chunk maximum iteration count
     and relres the worst true relative residual over the batch; a
-    ``trace`` list receives each chunk's (iterations, worst relres).
+    ``trace`` list receives each chunk's (iterations, worst relres). With
+    tracing on, each chunk's span also gets the iterations and the true
+    relres of every right-hand side (``lane_iters``, ``lane_relres``),
+    read in the same transfer as the worst relres.
 
     The BiCGStab chunk tolerance is rescaled so the stop target stays
     tol * ||b|| globally (with a 0.7 margin for recursive-vs-true residual
@@ -723,7 +772,11 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
 
     margin = 0.7
 
-    def chunk_step(op, b, x, M):
+    def chunk_step(op, b, x, M, sp):
+        '''
+        One chunk from the iterate x: (new iterate, worst true relres,
+        iterations), each read to the host.
+        '''
         def mv(v):
             return apply_block_stencil_fast(op.planes, v)
 
@@ -743,36 +796,52 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
             res = bicgstab(mv, r, M=M, tol=tol_c, maxiter=chunk)
         x = x + res.x
         bnorm = torch.where(bnorm0 > 0, bnorm0, torch.ones_like(bnorm0))
-        rr = _norm(b - mv(x)) / bnorm
-        return x, torch.max(rr), torch.max(res.iters)
+        with span('helmholtz.true_residual'):
+            rr = _norm(b - mv(x)) / bnorm
+            if enabled():
+                # the lanes' iterations and relres ride with the worst
+                n = rr.shape[0]
+                host = torch.cat([torch.max(rr).reshape(1), rr,
+                                  res.iters.to(rr.dtype)]).cpu()
+                worst = float(host[0])
+                sp.set(lane_iters=[int(v) for v in host[1 + n:]],
+                       lane_relres=host[1:1 + n].tolist())
+            else:
+                worst = float(torch.max(rr))
+            add('solver.syncs')
+        its = int(torch.max(res.iters))
+        add('solver.syncs')
+        return x, worst, its
 
     def solve_chunked(op, b_batch, max_chunks=None, trace=None):
         if max_chunks is None:
             max_chunks = max(1, config.maxiter // chunk)
-        M = _make_precond(op, config)
-        x = torch.zeros_like(b_batch)
-        iters = 0
-        worst = None
-        best = None
-        for i in range(max_chunks):
-            x_new, rr, its = chunk_step(op, b_batch, x, M)
-            worst = float(rr)
-            iters += int(its)
-            if trace is not None:
-                trace.append((int(its), worst))
-            if not np.isfinite(worst) or (best is not None
-                                          and worst > 4.0 * best[1]):
-                # the restart made the TRUE residual materially worse or
-                # non-finite: keep the best iterate (or, on the first
-                # chunk, the pre-chunk iterate) and stop
-                if best is not None:
-                    x, worst = best
-                break
-            x = x_new
-            if best is None or worst < best[1]:
-                best = (x, worst)
-            if worst <= config.tol:
-                break
+        with span('helmholtz.solve', R=b_batch.shape[0], chunk=chunk):
+            M = _make_precond(op, config)
+            x = torch.zeros_like(b_batch)
+            iters = 0
+            worst = None
+            best = None
+            for i in range(max_chunks):
+                with span('helmholtz.chunk') as sp:
+                    x_new, worst, its = chunk_step(op, b_batch, x, M, sp)
+                    sp.set(iterations=its, relres=worst)
+                iters += its
+                if trace is not None:
+                    trace.append((its, worst))
+                if not np.isfinite(worst) or (best is not None
+                                              and worst > 4.0 * best[1]):
+                    # the restart made the TRUE residual materially worse
+                    # or non-finite: keep the best iterate (or, on the
+                    # first chunk, the pre-chunk iterate) and stop
+                    if best is not None:
+                        x, worst = best
+                    break
+                x = x_new
+                if best is None or worst < best[1]:
+                    best = (x, worst)
+                if worst <= config.tol:
+                    break
         return x, iters, worst
 
     return solve_chunked

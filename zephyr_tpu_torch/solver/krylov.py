@@ -9,11 +9,23 @@ and least-squares right-hand side are per RHS). The JAX package vmaps a
 ``lax.while_loop``; its semantics are reproduced here: the loop runs while
 ANY right-hand side is still active, and a right-hand side whose own
 condition has turned false is frozen (its state is no longer updated).
+
+With tracing on (``utils.profiling.recording``) BiCGStab opens a span
+``krylov.step`` an iteration (or the check that ends the loop), with the
+children ``krylov.sync`` (the host wait) and ``krylov.matvec``; the
+preconditioner opens its own. Every host read counts in ``solver.syncs``.
+``bicgstab_fixed``, which runs inside a preconditioner, opens none.
 '''
 
+import contextlib
 from typing import NamedTuple, Any
 
 import torch
+
+from ..utils.profiling import add, span
+
+#: the span of a fixed-step solve: it belongs to its caller's
+_QUIET = contextlib.nullcontext()
 
 
 def _dot(a, b):
@@ -116,48 +128,57 @@ def _bicgstab(matvec, b, M, x0, tol, maxiter, fixed):
     def active_mask():
         return (_norm(r) > atol) & (k < maxiter) & ~down
 
+    def sp(name):
+        return _QUIET if fixed else span(name)
+
     act = active_mask()
     for _ in range(maxiter):
-        everyone = False
-        if not fixed:
-            flags = act.cpu()   # the one host sync of an iteration
-            if not bool(flags.any()):
-                break
-            everyone = bool(flags.all())
-        rho_new = _dot(rhat, r)
-        beta = _safe_div(rho_new * alpha, rho * omega)
-        p_new = r + _bcast(beta, r) * (p - _bcast(omega, v) * v)
-        phat = M(p_new)
-        v_new = matvec(phat)
-        denom = _dot(rhat, v_new)
-        alpha_new = _safe_div(rho_new, denom)
-        s = r - _bcast(alpha_new, v_new) * v_new
-        shat = M(s)
-        t = matvec(shat)
-        tt = _dot(t, t)
-        omega_new = _safe_div(_dot(t, s), tt)
-        x_new = (x + _bcast(alpha_new, phat) * phat
-                 + _bcast(omega_new, shat) * shat)
-        r_new = s - _bcast(omega_new, t) * t
-        # Lanczos breakdown: the next iteration cannot make progress
-        down_new = ((torch.abs(rho_new) < tiny) | (torch.abs(denom) < tiny)
-                    | (torch.abs(omega_new) < tiny))
+        with sp('krylov.step'):
+            everyone = False
+            if not fixed:
+                with span('krylov.sync'):
+                    flags = act.cpu()   # the one host sync of an iteration
+                add('solver.syncs')
+                if not bool(flags.any()):
+                    break
+                everyone = bool(flags.all())
+            rho_new = _dot(rhat, r)
+            beta = _safe_div(rho_new * alpha, rho * omega)
+            p_new = r + _bcast(beta, r) * (p - _bcast(omega, v) * v)
+            phat = M(p_new)
+            with sp('krylov.matvec'):
+                v_new = matvec(phat)
+            denom = _dot(rhat, v_new)
+            alpha_new = _safe_div(rho_new, denom)
+            s = r - _bcast(alpha_new, v_new) * v_new
+            shat = M(s)
+            with sp('krylov.matvec'):
+                t = matvec(shat)
+            tt = _dot(t, t)
+            omega_new = _safe_div(_dot(t, s), tt)
+            x_new = (x + _bcast(alpha_new, phat) * phat
+                     + _bcast(omega_new, shat) * shat)
+            r_new = s - _bcast(omega_new, t) * t
+            # Lanczos breakdown: the next iteration cannot make progress
+            down_new = ((torch.abs(rho_new) < tiny)
+                        | (torch.abs(denom) < tiny)
+                        | (torch.abs(omega_new) < tiny))
 
-        if everyone:
-            x, r, p, v = x_new, r_new, p_new, v_new
-        else:
-            # freeze every right-hand side whose own loop has ended
-            af = _bcast(act, b)
-            x = torch.where(af, x_new, x)
-            r = torch.where(af, r_new, r)
-            p = torch.where(af, p_new, p)
-            v = torch.where(af, v_new, v)
-        rho = torch.where(act, rho_new, rho)
-        alpha = torch.where(act, alpha_new, alpha)
-        omega = torch.where(act, omega_new, omega)
-        k = torch.where(act, k + 1, k)
-        down = torch.where(act, down_new, down)
-        act = active_mask()
+            if everyone:
+                x, r, p, v = x_new, r_new, p_new, v_new
+            else:
+                # freeze every right-hand side whose own loop has ended
+                af = _bcast(act, b)
+                x = torch.where(af, x_new, x)
+                r = torch.where(af, r_new, r)
+                p = torch.where(af, p_new, p)
+                v = torch.where(af, v_new, v)
+            rho = torch.where(act, rho_new, rho)
+            alpha = torch.where(act, alpha_new, alpha)
+            omega = torch.where(act, omega_new, omega)
+            k = torch.where(act, k + 1, k)
+            down = torch.where(act, down_new, down)
+            act = active_mask()
     return BicgstabResult(x, k, _norm(r) / bnorm)
 
 
@@ -283,6 +304,7 @@ def _restarted(cycle, matvec, b, M, tol, maxiter, restart):
     k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     while True:
         act = (rr > tol) & (k < ncycles)
+        add('solver.syncs')
         if not bool(act.any()):     # the one host sync of a cycle
             break
         res = cycle(matvec, b, M=M, x0=x, m=restart)
