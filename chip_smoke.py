@@ -28,7 +28,11 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    of its hierarchy (256^2 to 32^2) x 16, at R=1 at 2048^2 and 512^2,
    and at 37x53 x 3; K2 (1 and 2 sweeps), K4 and K9 again at 2048^2 x 16
    and 37x53 x 3 under the closure mask of an overlapped-Schwarz slab
-   (columns 0..16 and nx-17..nx-1 zeroed on top of the ring);
+   (columns 0..16 and nx-17..nx-1 zeroed on top of the ring); 3b: K11
+   (the fused BiCGStab recurrence, csrc/k11_bicgstab.cu) at the
+   benchmark's batch (2304 x 768 x 16): ptxas's registers and spills of
+   each of its kernels, and each kernel from the same fields and state
+   as its twin, timed beside the twin and its byte bound;
 4. the forward-modelling oracle: ``MiniZephyr(config) * q`` on the card
    with the production solver options (4) and with no solverOpts, the
    default SolverConfig (4b), against AnalyticalHelmholtz
@@ -44,7 +48,9 @@ Phases (each fails loudly: a non-zero exit and no final ok line):
    (K1-K4, K7), over phase 12 (K7, K8), over 13a-c (K1, K2, K4, K7),
    over 13d (K8), over 13e (K1-K5) and over phase 14's spatial path
    (14a-c and 14d's traced solve: K1-K4), each path driven with the
-   counts set to 0 just before it;
+   counts set to 0 just before it; and K11's counts on each of those
+   paths, counted the same way (each of its kernels must be > 0 on the
+   paths whose BiCGStab runs on the card, K11_PATHS);
 7. gradients: (a) ``fwi_misfit_grad_chunked`` at the bench's gradient
    size (2048^2 layered, 16 sources, 8 frequencies, 64 receivers, grids
    by targetGPW 16), finite and non-zero; (b) the backward of ``solve``
@@ -774,6 +780,88 @@ def check_kernels():
            per_it['K2_K3_ms_marmousi'], per_it['K3_ms_marmousi'],
            per_it['K3_ms_default']))
     return results
+
+
+#: K11's kernels with the fields each reads and writes once (complex64
+#: passes over an (R, N) batch) and the twin each is held against
+K11_PASSES = {'bicgstab_prologue': 3, 'bicgstab_p': 4, 'bicgstab_rv': 2,
+              'bicgstab_s': 3, 'bicgstab_ts': 2, 'bicgstab_xr': 8}
+
+
+def check_krylov_kernels(nz=768, nx=2304, R=16):
+    '''
+    Phase 3b: K11 (csrc/k11_bicgstab.cu, the fused BiCGStab recurrence)
+    at the benchmark's batch, R x nz x nx complex64: each kernel from the
+    same fields and state as its plain twin (fields written within
+    KERNEL_TOL of the twin's largest magnitude), timed beside its twin
+    and its bound (the passes of K11_PASSES over R nz nx complex64 at
+    PEAK_BYTES_S; the scalars and partials are a few KB). Every lane stays
+    active while it is timed (tol 0, maxiter 2^30). Returns {name: row}.
+    '''
+    import torch
+    from zephyr_tpu_torch.ops import krylov_kernels as kk
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(11)
+
+    def field():
+        return torch.complex(
+            torch.randn((R, 1, nz, nx), generator=gen, device=DEV),
+            torch.randn((R, 1, nz, nx), generator=gen, device=DEV))
+    b, r, p, v, s, t, phat, shat, x = (field() for _ in range(9))
+    maxiter = 2 ** 30
+    st = kk.State(b, 0.0)
+    rhat = kk.prologue(b, r, st, maxiter)
+    st_t = kk.State(b, 0.0)
+    calls = {
+        'bicgstab_prologue': (lambda: kk.prologue(b, r, st, maxiter),
+                              lambda: kk.prologue_ref(b, r, rhat, st_t,
+                                                      maxiter), None),
+        'bicgstab_p': (lambda: kk.update_p(r, p, v, st),
+                       lambda: kk.update_p_ref(r, p, v, st_t), p),
+        'bicgstab_rv': (lambda: kk.dot_rv(rhat, v, st),
+                        lambda: kk.dot_rv_ref(rhat, v, st_t), None),
+        'bicgstab_s': (lambda: kk.update_s(r, v, s, st),
+                       lambda: kk.update_s_ref(r, v, s, st_t), s),
+        'bicgstab_ts': (lambda: kk.dots_ts(t, s, st),
+                        lambda: kk.dots_ts_ref(t, s, st_t), None),
+        'bicgstab_xr': (lambda: kk.update_xr(rhat, x, r, s, t, phat, shat,
+                                             st, maxiter),
+                        lambda: kk.update_xr_ref(rhat, x, r, s, t, phat,
+                                                 shat, st_t, maxiter), x)}
+    out = {}
+    for name, (kern, plain, written) in calls.items():
+        err = None
+        if written is not None:
+            st_t.sc.copy_(st.sc)
+            st_t.fl.copy_(st.fl)
+            keep = written.clone()
+            kern()
+            got = written.clone()
+            written.copy_(keep)
+            plain()
+            err = rel_err(got, written)[0]
+            if not err <= KERNEL_TOL:
+                fail('K11 %s disagrees with its twin: %.3e > %.0e'
+                     % (name, err, KERNEL_TOL))
+        nbytes = K11_PASSES[name] * 8 * R * nz * nx
+        b_ms = nbytes / PEAK_BYTES_S * 1e3
+        row = {'ms': cuda_ms(kern), 'plain_ms': cuda_ms(plain),
+               'bound_ms': b_ms, 'bound_by': 'bytes', 'bytes': nbytes,
+               'rel_err': err}
+        row['share'] = b_ms / row['ms']
+        out[name] = row
+        say('  K11 %-18s %dx%d R=%d  kernel %.3f ms  plain %.3f ms  bound '
+            '%.3f ms (bytes), %.0f%%%s'
+            % (name, nz, nx, R, row['ms'], row['plain_ms'], b_ms,
+               100 * row['share'],
+               '' if err is None else '  rel err %.1e' % err))
+    if not bool(st.fl[kk.ACT].all()):
+        fail('K11: a lane stopped while it was timed')
+    step = sum(out[k]['ms'] for k in out if k != 'bicgstab_prologue')
+    say('  K11 a step (p, rv, s, ts, xr): %.3f ms, bound %.3f ms'
+        % (step, sum(out[k]['bound_ms'] for k in out
+                     if k != 'bicgstab_prologue')))
+    return out
 
 
 def slab_mask(nz, nx, overlap=16):
@@ -3184,6 +3272,12 @@ FRONTEND_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                  'prolong_add_smooth', 'jacobi_sweep')
 SPATIAL_PATH = ('apply_stencil', 'presmooth_restrict', 'pcr_sweep',
                 'prolong_add_smooth')
+#: the paths that must launch every K11 kernel (phase 6): their solves
+#: run BiCGStab on complex64 through ``make_chunked_solver`` (and the
+#: iterative coarse solve's ``bicgstab_fixed`` in 13a-c); the middleware
+#: and 13e solve through ``solve_batched``, whose unrestarted BiCGStab
+#: keeps the eager recurrence, and the TTI paths run GMRES
+K11_PATHS = ('scalar', 'marmousi', 'multifreq', 'configs', 'spatial')
 
 
 def main():
@@ -3194,6 +3288,7 @@ def main():
     sys.path.insert(0, HERE)
     import zephyr_tpu_torch  # noqa: F401  (fails outside the repo)
     from zephyr_tpu_torch.ops import cuda_kernels as ck
+    from zephyr_tpu_torch.ops import krylov_kernels as kk
 
     # phase 1
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3225,11 +3320,18 @@ def main():
     # phase 3
     say('phase 3: kernels against their torch twins (complex64, card)')
     kres = check_kernels()
+    say('phase 3b: K11 against its twins at the benchmark\'s batch')
+    for entry, (regs, st, ld) in sorted(ptxas_of(
+            so.with_suffix('.log').read_text(), 'zk_bicgstab').items()):
+        say('K11 ptxas %s: %s registers, spill %d B stores / %d B loads'
+            % (entry, regs, st, ld))
+    k11 = check_krylov_kernels()
 
     # phases 4-7 (the scalar paths) and phase 8 (TTI), each with the
     # launch counts set to 0 just before it and read just after
-    launches = {}
+    launches, k11_launches = {}, {}
     ck.reset_launches()
+    kk.reset_launches()
     oracle_flow()
     oracle_flow(None)
     runs = [headline(2048, 16, 'hom', card)[0],
@@ -3240,7 +3342,9 @@ def main():
              'agreement': gradient_agreement(512, 8, 32, card)}
     torch.cuda.synchronize()
     launches['scalar'] = dict(ck.LAUNCHES)
+    k11_launches['scalar'] = dict(kk.KRYLOV_LAUNCHES)
     ck.reset_launches()
+    kk.reset_launches()
     # the layered row stalls on the card (fault F4: at 3.78e-2 from its
     # sixth chunk on), so it runs once, after the hom row has warmed
     # every code path, and stops after 20 chunks (320 iterations; the
@@ -3252,7 +3356,9 @@ def main():
            'pin': tti_pin(card)}
     torch.cuda.synchronize()
     launches['tti'] = dict(ck.LAUNCHES)
+    k11_launches['tti'] = dict(kk.KRYLOV_LAUNCHES)
     ck.reset_launches()
+    kk.reset_launches()
     row_a, op_a = headline(2048, 16, 'marmousi', card)
     if row_a['panels'] != 8:
         fail('marmousi 2048^2: the auto rule gave %d panels, not 8'
@@ -3267,20 +3373,27 @@ def main():
                                            medium='marmousi')
     torch.cuda.synchronize()
     launches['marmousi'] = dict(ck.LAUNCHES)
+    k11_launches['marmousi'] = dict(kk.KRYLOV_LAUNCHES)
     ck.reset_launches()
+    kk.reset_launches()
     mw = {'marmousi': middleware_marmousi(2048, card),
           'gradient': middleware_gradient(512, card),
           'visco': middleware_visco(512, card)}
     torch.cuda.synchronize()
     launches['middleware'] = dict(ck.LAUNCHES)
+    k11_launches['middleware'] = dict(kk.KRYLOV_LAUNCHES)
     ck.reset_launches()
+    kk.reset_launches()
     mf = {name: run() for name, run in phase11(card).items()}
     torch.cuda.synchronize()
     launches['multifreq'] = dict(ck.LAUNCHES)
+    k11_launches['multifreq'] = dict(kk.KRYLOV_LAUNCHES)
     ck.reset_launches()
+    kk.reset_launches()
     tg = {name: run() for name, run in phase12(card).items()}
     torch.cuda.synchronize()
     launches['tti_gradient'] = dict(ck.LAUNCHES)
+    k11_launches['tti_gradient'] = dict(kk.KRYLOV_LAUNCHES)
     tg['k8_copies'] = ck.COPIES['apply_block_stencil']
     say('phase 12: K8 calls whose operands were copied: %d'
         % tg['k8_copies'])
@@ -3291,22 +3404,30 @@ def main():
     t13 = time.perf_counter()
     p13 = phase13(card, runs[0])
     ck.reset_launches()
+    kk.reset_launches()
     cf = {name: p13[name]() for name in list(CONFIG_ROWS)
           + ['interior_mask']}
     torch.cuda.synchronize()
     launches['configs'] = dict(ck.LAUNCHES)
+    k11_launches['configs'] = dict(kk.KRYLOV_LAUNCHES)
     ck.reset_launches()
+    kk.reset_launches()
     cf['tti_2d'] = p13['tti_2d']()
     torch.cuda.synchronize()
     launches['configs_tti'] = dict(ck.LAUNCHES)
+    k11_launches['configs_tti'] = dict(kk.KRYLOV_LAUNCHES)
     ck.reset_launches()
+    kk.reset_launches()
     cf['frontend'] = p13['frontend']()
     torch.cuda.synchronize()
     launches['frontend'] = dict(ck.LAUNCHES)
+    k11_launches['frontend'] = dict(kk.KRYLOV_LAUNCHES)
     cf['seconds'] = time.perf_counter() - t13
     say('phase 13: %.1f s' % cf['seconds'])
     # phase 14: the scale-out layer, with its own counts
+    kk.reset_launches()
     sp, launches['spatial'] = phase14(card, runs[1]['iters'])
+    k11_launches['spatial'] = dict(kk.KRYLOV_LAUNCHES)
 
     # phase 6
     for path, names in (('scalar', SCALAR_PATH), ('tti', TTI_PATH),
@@ -3323,6 +3444,12 @@ def main():
         for name in names:
             if launches[path][name] == 0:
                 fail('kernel %s was never launched on the %s path'
+                     % (name, path))
+    for path, counts in k11_launches.items():
+        say('K11 launches over the %s path: %s' % (path, json.dumps(counts)))
+        for name, n in counts.items():
+            if path in K11_PATHS and n == 0:
+                fail('K11 kernel %s was never launched on the %s path'
                      % (name, path))
     for key in sorted(k for k in kres if k not in KERNELS):
         say('%s: %s' % (key, json.dumps(kres[key])))
@@ -3358,6 +3485,7 @@ def main():
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms']})
     say(json.dumps({'kernels': kernels}))
+    say(json.dumps({'k11': k11, 'launches': k11_launches, 'card': card}))
     say(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

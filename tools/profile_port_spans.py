@@ -31,8 +31,11 @@ and reads, per outer Krylov iteration: the device ms launched in
 ``precond.apply``; ``krylov.sync`` counts as its own), the device ms
 under ``precond.apply``, the idle ms put down to ``krylov.step`` /
 ``krylov.sync`` and to ``precond.*``, ``solver.syncs``; the share of
-lane-iterations spent on right-hand sides that had stopped (from the
-chunks' ``lane_iters``); and ``helmholtz.prepare_operator``'s seconds.
+the iterations whose BiCGStab step ran fused (``krylov.fused_steps``,
+K11, over the window's iterations: 100 where every step took it); the
+share of lane-iterations spent on right-hand sides that had stopped
+(from the chunks' ``lane_iters``); and
+``helmholtz.prepare_operator``'s seconds.
 Of every window: ms an iteration (host clock), the device's idle share
 (device-side annotations are no activity), and each batch's iterations
 and worst relres, which tracing must leave as they are.
@@ -335,6 +338,8 @@ def main(argv=None):
                     v for n, v in ibs.items() if n.startswith('precond.')),
                 'lane_waste': lane_waste(spans),
                 'syncs_per_iter': counters.get('solver.syncs', 0) / iters,
+                'fused_step_share': 100.0 * counters.get(
+                    'krylov.fused_steps', 0) / iters,
                 'algebra_ms_per_iter': per * sum(
                     a['algebra_by_span'].values())})
         if device != 'cpu':

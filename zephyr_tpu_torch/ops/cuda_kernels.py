@@ -28,6 +28,10 @@ twins.
     K7 restrict, prolong    csrc/k7_transfer.cu
     K8 apply_block_stencil  csrc/k8_apply_block_stencil.cu
     K9 presmooth_residual   csrc/k9_presmooth_residual.cu
+
+The library also holds K11 (``csrc/k11_bicgstab.cu``, the fused
+BiCGStab recurrence), which ``ops.krylov_kernels`` binds, launches and
+counts itself.
 '''
 
 import ctypes
@@ -49,7 +53,8 @@ BUILD_DIR = _PKG.parent / 'build' / 'zephyr_tpu_torch_kernels'
 SOURCES = ('k1_apply_stencil.cu', 'k2_presmooth_restrict.cu',
            'k3_pcr_sweep.cu', 'k4_prolong_add_smooth.cu',
            'k5_jacobi_sweep.cu', 'k6_jacobi_sweep2.cu', 'k7_transfer.cu',
-           'k8_apply_block_stencil.cu', 'k9_presmooth_residual.cu')
+           'k8_apply_block_stencil.cu', 'k9_presmooth_residual.cu',
+           'k11_bicgstab.cu')
 HEADERS = ('zt_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')

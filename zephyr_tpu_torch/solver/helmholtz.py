@@ -631,6 +631,14 @@ def _krylov_solve(matvec, b, M, config, block_size):
     '''
     One Krylov run of the configured method on a batch b (R, B, nz, nx)
     to ``config.tol``: BicgstabResult(x, iters (R,), relres (R,)).
+
+    BiCGStab runs the eager recurrence here on the card too, not K11: an
+    unrestarted run never checks its true residual, and in complex64 how
+    far that drifts from the recursive one follows rounding, which K11's
+    summation order changes (on a 512^2 2.5D Marmousi solve, two ky
+    solves that the eager rounding ends near 1e-4 end at true relres 4.6e4
+    and 1.7e5 with K11's). ``make_chunked_solver`` restarts on the true
+    residual and takes K11.
     '''
 
     krylov = _effective_krylov(config, block_size)
@@ -641,7 +649,8 @@ def _krylov_solve(matvec, b, M, config, block_size):
     if krylov == 'gmres':
         return gmres(matvec, b, M=M, tol=config.tol,
                      maxiter=config.maxiter, restart=config.gmres_restart)
-    return bicgstab(matvec, b, M=M, tol=config.tol, maxiter=config.maxiter)
+    return bicgstab(matvec, b, M=M, tol=config.tol, maxiter=config.maxiter,
+                    fused=False)
 
 
 class _LinearSolve(torch.autograd.Function):
@@ -764,18 +773,23 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
 
     The BiCGStab chunk tolerance is rescaled so the stop target stays
     tol * ||b|| globally (with a 0.7 margin for recursive-vs-true residual
-    drift). If a restart makes the true residual non-finite or more than
-    4x worse than the best so far, the best iterate is kept; a non-finite
-    FIRST chunk keeps the pre-chunk iterate (zeros) and returns its
-    non-finite relres.
+    drift). If a restart makes the true residual non-finite, or (GMRES,
+    FGMRES) more than 4x worse than the best so far, the best iterate is
+    kept and the solve stops; a non-finite FIRST chunk keeps the
+    pre-chunk iterate (zeros) and returns its non-finite relres. A
+    BiCGStab chunk that leaves the true residual more than 4x worse than
+    the best goes back to the best iterate, and the chunks from there on
+    run twice as long: BiCGStab's residual is erratic, and a chunk cut
+    where one lane's is high would otherwise end the solve above tol. The
+    budget is ``max_chunks * chunk`` iterations either way.
     '''
 
     margin = 0.7
 
-    def chunk_step(op, b, x, M, sp):
+    def chunk_step(op, b, x, M, sp, length):
         '''
-        One chunk from the iterate x: (new iterate, worst true relres,
-        iterations), each read to the host.
+        One chunk of ``length`` iterations from the iterate x: (new
+        iterate, worst true relres, iterations), each read to the host.
         '''
         def mv(v):
             return apply_block_stencil_fast(op.planes, v)
@@ -785,15 +799,15 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
         krylov = _effective_krylov(config, b.shape[-3])
         if krylov == 'fgmres':
             res = fgmres_cycle(mv, r, M=_inner_precond(mv, M, config),
-                               m=chunk)
+                               m=length)
         elif krylov == 'gmres':
-            res = gmres_cycle(mv, r, M=M, m=chunk)
+            res = gmres_cycle(mv, r, M=M, m=length)
         else:
             rnorm = _norm(r)
             tiny = torch.finfo(rnorm.dtype).tiny
             tol_c = (margin * config.tol * bnorm0
                      / torch.clamp(rnorm, min=tiny))
-            res = bicgstab(mv, r, M=M, tol=tol_c, maxiter=chunk)
+            res = bicgstab(mv, r, M=M, tol=tol_c, maxiter=length)
         x = x + res.x
         bnorm = torch.where(bnorm0 > 0, bnorm0, torch.ones_like(bnorm0))
         with span('helmholtz.true_residual'):
@@ -818,22 +832,33 @@ def make_chunked_solver(config=SolverConfig(), chunk=64):
             max_chunks = max(1, config.maxiter // chunk)
         with span('helmholtz.solve', R=b_batch.shape[0], chunk=chunk):
             M = _make_precond(op, config)
+            bicg = _effective_krylov(config, b_batch.shape[-3]) == 'bicgstab'
             x = torch.zeros_like(b_batch)
             iters = 0
             worst = None
             best = None
-            for i in range(max_chunks):
+            length, left = chunk, max_chunks * chunk
+            while left > 0:
+                length = min(length, left)
                 with span('helmholtz.chunk') as sp:
-                    x_new, worst, its = chunk_step(op, b_batch, x, M, sp)
+                    x_new, worst, its = chunk_step(op, b_batch, x, M, sp,
+                                                   length)
                     sp.set(iterations=its, relres=worst)
+                left -= length
                 iters += its
                 if trace is not None:
                     trace.append((its, worst))
-                if not np.isfinite(worst) or (best is not None
-                                              and worst > 4.0 * best[1]):
-                    # the restart made the TRUE residual materially worse
-                    # or non-finite: keep the best iterate (or, on the
-                    # first chunk, the pre-chunk iterate) and stop
+                worse = best is not None and worst > 4.0 * best[1]
+                if bicg and worse and np.isfinite(worst):
+                    # the restart made the TRUE residual materially
+                    # worse: back to the best iterate, longer chunks
+                    x, worst = best
+                    length *= 2
+                    continue
+                if not np.isfinite(worst) or worse:
+                    # non-finite, or worse after a GMRES cycle: keep the
+                    # best iterate (or, on the first chunk, the pre-chunk
+                    # iterate) and stop
                     if best is not None:
                         x, worst = best
                     break

@@ -10,11 +10,19 @@ and least-squares right-hand side are per RHS). The JAX package vmaps a
 ANY right-hand side is still active, and a right-hand side whose own
 condition has turned false is frozen (its state is no longer updated).
 
+BiCGStab on CUDA complex64 right-hand sides runs its recurrence in K11
+(``ops.krylov_kernels``: five launches a step that stream each field
+once, with every per-lane scalar kept on the device and frozen lanes left
+untouched), unless the caller asks for the eager one (``fused=False``);
+the CPU and complex128 run the eager recurrence below, which is K11's
+plain twin in semantics. GMRES and FGMRES stay eager.
+
 With tracing on (``utils.profiling.recording``) BiCGStab opens a span
 ``krylov.step`` an iteration (or the check that ends the loop), with the
 children ``krylov.sync`` (the host wait) and ``krylov.matvec``; the
-preconditioner opens its own. Every host read counts in ``solver.syncs``.
-``bicgstab_fixed``, which runs inside a preconditioner, opens none.
+preconditioner opens its own. Every host read counts in ``solver.syncs``,
+every fused step in ``krylov.fused_steps``. ``bicgstab_fixed``, which
+runs inside a preconditioner, opens and counts none.
 '''
 
 import contextlib
@@ -22,6 +30,7 @@ from typing import NamedTuple, Any
 
 import torch
 
+from ..ops import krylov_kernels as kk
 from ..utils.profiling import add, span
 
 #: the span of a fixed-step solve: it belongs to its caller's
@@ -49,7 +58,8 @@ class BicgstabResult(NamedTuple):
     relres: Any    # (R,) real
 
 
-def bicgstab(matvec, b, M=None, x0=None, tol=1e-6, maxiter=1000):
+def bicgstab(matvec, b, M=None, x0=None, tol=1e-6, maxiter=1000,
+             fused=True):
     '''
     Right-preconditioned BiCGStab for a batch of right-hand sides.
 
@@ -61,6 +71,10 @@ def bicgstab(matvec, b, M=None, x0=None, tol=1e-6, maxiter=1000):
         tol: relative residual target ||r|| <= tol * ||b||, a float or an
             (R,) tensor (per right-hand side)
         maxiter: iteration cap
+        fused: on a CUDA complex64 batch, run the recurrence in K11 (b and
+            x0 made dense first; raises where K11 cannot serve them, and
+            for a b that autograd would differentiate through); False
+            keeps the eager recurrence there too
 
     Returns:
         BicgstabResult(x, iters (R,), relres (R,))
@@ -69,7 +83,8 @@ def bicgstab(matvec, b, M=None, x0=None, tol=1e-6, maxiter=1000):
     host sync an iteration; ``bicgstab_fixed`` runs without it.
     '''
 
-    return _bicgstab(matvec, b, M, x0, tol, maxiter, fixed=False)
+    return _bicgstab(matvec, b, M, x0, tol, maxiter, fixed=False,
+                     fused=fused)
 
 
 def bicgstab_batched(matvec, b_batch, M=None, tol=1e-6, maxiter=1000):
@@ -96,9 +111,11 @@ def bicgstab_fixed(matvec, b, M=None, x0=None, tol=1e-6, maxiter=12):
     return _bicgstab(matvec, b, M, x0, tol, maxiter, fixed=True)
 
 
-def _bicgstab(matvec, b, M, x0, tol, maxiter, fixed):
+def _bicgstab(matvec, b, M, x0, tol, maxiter, fixed, fused=True):
     if M is None:
         M = lambda r: r
+    if fused and kk.on_card(b):
+        return _bicgstab_fused(matvec, b, M, x0, tol, maxiter, fixed)
 
     cdtype = b.dtype
     dev = b.device
@@ -180,6 +197,71 @@ def _bicgstab(matvec, b, M, x0, tol, maxiter, fixed):
             down = torch.where(act, down_new, down)
             act = active_mask()
     return BicgstabResult(x, k, _norm(r) / bnorm)
+
+
+def _dense(t):
+    't as the kernels read it: contiguous, no conjugate or negative view.'
+    return t.resolve_conj().resolve_neg().contiguous()
+
+
+def _bicgstab_fused(matvec, b, M, x0, tol, maxiter, fixed):
+    '''
+    ``_bicgstab``'s recurrence on K11 (``ops.krylov_kernels``): five
+    launches a step around M and the operator, each field streamed once,
+    x, r, p and s updated in place, and every per-lane scalar (rho, alpha,
+    omega, k, down, act, atol) in a ``State`` that the kernels read and
+    write on the device. The one host read of a step is ``act``, the
+    loop's end condition; ``fixed`` makes none. A frozen lane's blocks
+    return at once, so its x and r stay as they were. For CPU tensors the
+    kernels' plain twins run instead (the tests drive it so). b, x0 and
+    what M and the operator return are made dense (contiguous, no
+    conjugate or negative view) before the kernels read them; x0 must
+    have b's shape.
+
+    With tracing on, each step counts in ``krylov.fused_steps``.
+    '''
+
+    if b.requires_grad and torch.is_grad_enabled():
+        raise ValueError('bicgstab: the fused recurrence is not '
+                         'differentiable; solve through '
+                         'solver.helmholtz.solve_batched, or pass '
+                         'fused=False')
+    b = _dense(b)
+    x = torch.zeros_like(b)
+    if x0 is not None:
+        if tuple(x0.shape) != tuple(b.shape):
+            raise ValueError('bicgstab: x0 of shape %s for b of shape %s'
+                             % (tuple(x0.shape), tuple(b.shape)))
+        x.copy_(x0)
+    r = _dense(b - matvec(x))
+    st = kk.State(b, tol)
+    rhat = kk.prologue(b, r, st, maxiter)
+    p, v, s = (torch.zeros_like(b) for _ in range(3))
+
+    def sp(name):
+        return _QUIET if fixed else span(name)
+
+    for _ in range(maxiter):
+        with sp('krylov.step'):
+            if not fixed:
+                with span('krylov.sync'):
+                    flags = st.act().cpu()  # the one host sync of a step
+                add('solver.syncs')
+                if not bool(flags.any()):
+                    break
+                add('krylov.fused_steps')
+            kk.update_p(r, p, v, st)
+            phat = _dense(M(p))
+            with sp('krylov.matvec'):
+                v = _dense(matvec(phat))
+            kk.dot_rv(rhat, v, st)
+            kk.update_s(r, v, s, st)
+            shat = _dense(M(s))
+            with sp('krylov.matvec'):
+                t = _dense(matvec(shat))
+            kk.dots_ts(t, s, st)
+            kk.update_xr(rhat, x, r, s, t, phat, shat, st, maxiter)
+    return BicgstabResult(x, st.iters(), st.relres())
 
 
 def gmres_cycle(matvec, b, M=None, x0=None, m=20):
