@@ -11,12 +11,21 @@ after cancellation) by up to 3e-13.
 Cases: every lane active; per-lane tolerances as the chunked solver
 passes them (lanes stop at different steps); a lane with b = 0; a lane
 whose operator breaks the recurrence down at its first step; the
-fixed-step solve of ``bicgstab_fixed``; each lane's dots summed from
-the plan's two block partials (48 x 40). Also: the CUDA-only conditions
-of the path and what it refuses, dense copies of strided and conjugate
-inputs, the unrestarted solve's eager recurrence, the chunked solver's
-restart from its best iterate, the block plan, and the kernels' names
-and state rows in the source.
+fixed-step solve of ``bicgstab_fixed``; a solve that ends on maxiter
+with every lane active; each lane's dots summed from the plan's two
+block partials (48 x 40).
+
+The driver reads the lanes' stop flags one step late; over the same
+cases (and at the loop's edges: maxiter 0, every lane stopped before the
+first step, the last lane stopping on the last step or the one before)
+it gives x, iters and relres bit for bit equal to the loop that reads
+them before every step (written here from the twins), with at most one
+overrun step, none when the loop ends on maxiter.
+
+Also: the CUDA-only conditions of the path and what it refuses, dense
+copies of strided and conjugate inputs, the unrestarted solve's eager
+recurrence, the chunked solver's restart from its best iterate, the
+block plan, and the kernels' names and state rows in the source.
 '''
 
 import re
@@ -86,7 +95,8 @@ def _lane_tol(matvec, b, tol=1e-10):
         [1.0, 1e2, 1e4, 1e-1], dtype=torch.float64), r
 
 
-CASES = ['all_active', 'lane_tol', 'zero_rhs', 'breakdown', 'fixed']
+CASES = ['all_active', 'lane_tol', 'zero_rhs', 'breakdown', 'fixed',
+         'ends_on_maxiter']
 
 
 def _case(name):
@@ -103,6 +113,8 @@ def _case(name):
     if name == 'fixed':
         tol = torch.tensor([1e-4, 1e-12, 1e-5, 1e-12], dtype=torch.float64)
         return matvec, M, _rhs(), tol, 12, True
+    if name == 'ends_on_maxiter':
+        return matvec, M, _rhs(), 1e-10, 8, False
     return matvec, M, _rhs(), 1e-10, 200, False
 
 
@@ -136,20 +148,127 @@ def test_fused_twins_match_eager(case):
         assert min(its[:2] + its[3:]) >= 10
     elif case == 'fixed':
         assert max(its) == 12 and min(its) < 12     # a lane froze early
+    elif case == 'ends_on_maxiter':
+        assert its == [8] * R
+
+
+def _one_read_a_step(matvec, b, M, tol, maxiter, fixed):
+    '''
+    The fused driver as it was before the lagged read, on the twins: a
+    blocking read of every lane's act before each step (none when
+    ``fixed``), and the loop ends on the first that finds none active.
+    (BicgstabResult, the steps it ran).
+    '''
+    b = krylov._dense(b)
+    x = torch.zeros_like(b)
+    r = krylov._dense(b - matvec(x))
+    st = kk.State(b, tol)
+    rhat = kk.prologue(b, r, st, maxiter)
+    p, v, s = (torch.zeros_like(b) for _ in range(3))
+    steps = 0
+    for _ in range(maxiter):
+        if not fixed and not bool(st.act().cpu().any()):
+            break
+        kk.update_p(r, p, v, st)
+        phat = krylov._dense(M(p))
+        v = krylov._dense(matvec(phat))
+        kk.dot_rv(rhat, v, st)
+        kk.update_s(r, v, s, st)
+        shat = krylov._dense(M(s))
+        t = krylov._dense(matvec(shat))
+        kk.dots_ts(t, s, st)
+        kk.update_xr(rhat, x, r, s, t, phat, shat, st, maxiter)
+        steps += 1
+    return krylov.BicgstabResult(x, st.iters(), st.relres()), steps
+
+
+def _lagged_against_one_read(matvec, M, b, tol, maxiter, fixed):
+    '''
+    The lagged driver and ``_one_read_a_step`` on one solve: x, iters and
+    relres bit for bit equal, and the lagged driver's steps those of the
+    other plus its overruns. (the lagged result, its counters, the other
+    loop's steps).
+    '''
+    ref, steps = _one_read_a_step(matvec, b, M, tol, maxiter, fixed)
+    with pf.recording() as rec:
+        got = krylov._bicgstab_fused(matvec, b, M, None, tol, maxiter,
+                                     fixed)
+    assert torch.equal(got.x, ref.x)
+    assert torch.equal(got.iters, ref.iters)
+    assert torch.equal(got.relres, ref.relres)
+    if fixed:
+        assert rec.counters == {} and steps == maxiter
+    else:
+        assert rec.counters.get('krylov.fused_steps', 0) == (
+            steps + rec.counters['krylov.overrun_steps'])
+    return got, rec.counters, steps
+
+
+@pytest.mark.parametrize('case', CASES)
+def test_lagged_read_matches_one_read_a_step(case):
+    '''
+    The lagged stop check changes no answer: x, iters and relres equal
+    the one-read-a-step loop's bit for bit. At most one overrun step when
+    every lane stops before maxiter, none when the loop ends on it.
+    '''
+    matvec, M, b, tol, maxiter, fixed = _case(case)
+    got, counters, steps = _lagged_against_one_read(matvec, M, b, tol,
+                                                    maxiter, fixed)
+    if fixed:
+        return
+    if int(torch.max(got.iters)) == maxiter:
+        assert counters['krylov.overrun_steps'] == 0
+    else:
+        assert steps < maxiter
+        assert counters['krylov.overrun_steps'] == 1
+
+
+@pytest.mark.parametrize('edge,overrun', [
+    ('no_step', 0),             # maxiter 0: nothing issued, nothing read
+    ('none_active', 1),         # b = 0: the first step finds every lane done
+    ('stops_before_last', 1),   # the overrun is the loop's last step
+    ('stops_on_last', 0),       # the last lane's k reaches maxiter
+    ('stops_two_before', 1)])
+def test_lagged_read_at_the_loops_edges(edge, overrun):
+    '''
+    Where the loop ends next to its edges, the lagged driver still equals
+    the one-read-a-step loop bit for bit and counts its overrun exactly;
+    its host reads are as many as that loop's.
+    '''
+    matvec, M, b, tol, _, _ = _case('all_active')
+    last = int(torch.max(krylov._bicgstab_fused(matvec, b, M, None, tol,
+                                                200, False).iters))
+    maxiter = {'no_step': 0, 'none_active': 200, 'stops_before_last':
+               last + 1, 'stops_on_last': last, 'stops_two_before':
+               last + 2}[edge]
+    if edge == 'none_active':
+        b = torch.zeros_like(b)
+    got, counters, steps = _lagged_against_one_read(matvec, M, b, tol,
+                                                    maxiter, False)
+    assert counters['krylov.overrun_steps'] == overrun
+    assert counters.get('solver.syncs', 0) == min(steps + 1, maxiter)
+    if edge == 'none_active':
+        assert steps == 0 and not torch.any(got.x)
 
 
 def test_fused_counts_steps_and_syncs():
-    'Tracing on: one sync and one fused step counted a step (the twins).'
+    '''
+    Tracing on (the twins): a solve that converges after ``steps`` steps
+    issues one more, the overrun, which the host learns of at the next
+    check; one sync a step issued, one span a step and one for that check.
+    '''
     matvec, M, b, tol, maxiter, fixed = _case('all_active')
     with pf.recording() as rec:
         fused = krylov._bicgstab_fused(matvec, b, M, None, tol, maxiter,
                                        fixed)
     steps = int(torch.max(fused.iters))
-    assert rec.counters == {'krylov.fused_steps': steps,
+    assert rec.counters == {'krylov.fused_steps': steps + 1,
+                            'krylov.overrun_steps': 1,
                             'solver.syncs': steps + 1}
     names = [s.name for s in rec.spans]
-    assert names.count('krylov.step') == steps + 1
-    assert names.count('krylov.matvec') == 2 * steps
+    assert names.count('krylov.step') == steps + 2
+    assert names.count('krylov.sync') == steps + 1
+    assert names.count('krylov.matvec') == 2 * (steps + 1)
 
 
 def test_fused_x0_left_as_it_was():
@@ -225,7 +344,9 @@ def test_unrestarted_solve_keeps_eager(monkeypatch):
     monkeypatch.setattr(kk, 'on_card', lambda b: True)
     with pf.recording() as rec:
         fused = krylov.bicgstab(matvec, b, M=M, tol=tol, maxiter=maxiter)
-    assert rec.counters['krylov.fused_steps'] == int(torch.max(fused.iters))
+    # every lane converges: one overrun step after the last
+    assert rec.counters['krylov.fused_steps'] == int(
+        torch.max(fused.iters)) + 1
     cfg = th.SolverConfig(tol=tol, maxiter=maxiter)
     with pf.recording() as rec:
         eager = th._krylov_solve(matvec, b, M, cfg, 1)

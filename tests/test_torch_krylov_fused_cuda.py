@@ -29,6 +29,13 @@ skip. On a machine with one (where jax is not installed, add
   float32 counts move with rounding, just above the most that the eager
   path's own lane counts moved on the card under 1-ulp changes of b and
   under another summation order of its dots (``LANE_BAND``).
+- The same chunked solves with the driver's lagged stop check (the
+  flags of the step before last, read through pinned memory and an
+  event) against a loop that reads every lane's flags before each step
+  (written here): x, iterations, relres and every chunk's reading bit
+  for bit equal, and each BiCGStab loop issues exactly one step more than
+  its iterations when every lane stopped before maxiter, none when it
+  ran to maxiter. Once on the default stream and once on another.
 '''
 
 import functools
@@ -276,9 +283,11 @@ def test_unrestarted_solve(medium):
                         b, M=M, tol=1e-4, maxiter=300, fused=fused)
     kk.reset_launches()
     fused = solve(True)
-    assert kk.KRYLOV_LAUNCHES['bicgstab_xr'] == int(torch.max(fused.iters))
+    # every lane converges: one overrun step after the last
+    steps = int(torch.max(fused.iters)) + 1
+    assert kk.KRYLOV_LAUNCHES['bicgstab_xr'] == steps
     eager = solve(False)
-    assert kk.KRYLOV_LAUNCHES['bicgstab_xr'] == int(torch.max(fused.iters))
+    assert kk.KRYLOV_LAUNCHES['bicgstab_xr'] == steps
     assert bool(torch.all(fused.relres <= 1e-4))
     assert bool(torch.all(eager.relres <= 1e-4))
     assert _counts_agree(name, 'unrestarted', fused.iters.cpu(),
@@ -314,8 +323,11 @@ def test_chunked_solve(medium, monkeypatch):
     x, iters, relres, trace, counters, launches, lanes = _chunked(
         medium, True, monkeypatch)
     assert np.isfinite(relres) and relres <= tol
-    assert counters['krylov.fused_steps'] == iters
-    assert launches['bicgstab_xr'] == launches['bicgstab_p'] == iters
+    # each loop that every lane left before maxiter runs one step more
+    overruns = counters['krylov.overrun_steps']
+    assert counters['krylov.fused_steps'] == iters + overruns
+    assert launches['bicgstab_xr'] == launches['bicgstab_p'] == (
+        iters + overruns)
     assert launches['bicgstab_prologue'] == len(trace)
     x2, iters2, _, trace2, _, _, lanes2 = _chunked(medium, True, monkeypatch)
     assert trace2 == trace and iters2 == iters and torch.equal(x2, x)
@@ -326,3 +338,89 @@ def test_chunked_solve(medium, monkeypatch):
     assert not any(launches_e.values())
     assert relres_e <= tol
     assert _counts_agree(name, 'chunked', lanes, lanes_e), (lanes, lanes_e)
+
+
+def _one_read_a_step(matvec, b, M=None, tol=1e-6, maxiter=1000):
+    '''
+    The fused driver as it was before the lagged read: a blocking read
+    of every lane's act before each step (``bicgstab``'s arguments, as
+    the chunked solver passes them).
+    '''
+    from zephyr_tpu_torch.solver import krylov
+    b = krylov._dense(b)
+    x = torch.zeros_like(b)
+    r = krylov._dense(b - matvec(x))
+    st = kk.State(b, tol)
+    rhat = kk.prologue(b, r, st, maxiter)
+    p, v, s = (torch.zeros_like(b) for _ in range(3))
+    for _ in range(maxiter):
+        if not bool(st.act().cpu().any()):
+            break
+        kk.update_p(r, p, v, st)
+        phat = krylov._dense(M(p))
+        v = krylov._dense(matvec(phat))
+        kk.dot_rv(rhat, v, st)
+        kk.update_s(r, v, s, st)
+        shat = krylov._dense(M(s))
+        t = krylov._dense(matvec(shat))
+        kk.dots_ts(t, s, st)
+        kk.update_xr(rhat, x, r, s, t, phat, shat, st, maxiter)
+    return krylov.BicgstabResult(x, st.iters(), st.relres())
+
+
+def _chunked_loops(medium, solver, monkeypatch, stream=None):
+    '''
+    The chunked solve to tol with ``solver`` as its BiCGStab, on
+    ``stream`` (default: the current one): (x, iters, relres, trace,
+    counters, [(K11 steps issued, the loop's iterations, its maxiter)]
+    for each BiCGStab loop).
+    '''
+    from zephyr_tpu_torch.solver import helmholtz
+    _, cfg, op, _, b = medium
+    loops = []
+
+    def counted(matvec, r, M=None, tol=1e-6, maxiter=1000):
+        before = kk.KRYLOV_LAUNCHES['bicgstab_xr']
+        res = solver(matvec, r, M=M, tol=tol, maxiter=maxiter)
+        loops.append((kk.KRYLOV_LAUNCHES['bicgstab_xr'] - before,
+                      int(torch.max(res.iters)), maxiter))
+        return res
+    monkeypatch.setattr(helmholtz, 'bicgstab', counted)
+    trace = []
+    torch.cuda.synchronize()
+    try:
+        with pf.recording() as rec, torch.cuda.stream(
+                stream or torch.cuda.current_stream()):
+            x, iters, relres = helmholtz.make_chunked_solver(
+                cfg, chunk=32)(op, b, trace=trace)
+        torch.cuda.synchronize()
+    finally:
+        monkeypatch.undo()
+    return x, iters, relres, trace, rec.counters, loops
+
+
+@pytest.mark.parametrize('on', ['default_stream', 'other_stream'])
+def test_lagged_read_bit_for_bit(medium, monkeypatch, on):
+    '''
+    The driver's lagged stop check against the one-read-a-step loop on
+    the chunked solve: the same answers bit for bit, and each loop's
+    overrun (K11 steps issued over its iterations) is 1 where every lane
+    stopped before maxiter and 0 where the loop ran to maxiter.
+    '''
+    from zephyr_tpu_torch.solver.krylov import bicgstab
+    stream = torch.cuda.Stream() if on == 'other_stream' else None
+    x, iters, relres, trace, counters, loops = _chunked_loops(
+        medium, bicgstab, monkeypatch, stream)
+    x_r, iters_r, relres_r, trace_r, _, loops_r = _chunked_loops(
+        medium, _one_read_a_step, monkeypatch)
+    assert torch.equal(x, x_r)
+    assert iters == iters_r and relres == relres_r and trace == trace_r
+    assert relres <= medium[1].tol
+    assert [its for _, its, _ in loops] == [its for _, its, _ in loops_r]
+    for (steps, its, maxiter), (steps_r, _, _) in zip(loops, loops_r):
+        assert steps_r == its
+        assert steps - its == (0 if its == maxiter else 1)
+    overruns = sum(steps - its for steps, its, _ in loops)
+    assert overruns >= 1            # the last loop converges
+    assert counters['krylov.overrun_steps'] == overruns
+    assert counters['krylov.fused_steps'] == iters + overruns

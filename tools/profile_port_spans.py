@@ -32,9 +32,12 @@ and reads, per outer Krylov iteration: the device ms launched in
 under ``precond.apply``, the idle ms put down to ``krylov.step`` /
 ``krylov.sync`` and to ``precond.*``, ``solver.syncs``; the share of
 the iterations whose BiCGStab step ran fused (``krylov.fused_steps``,
-K11, over the window's iterations: 100 where every step took it); the
-share of lane-iterations spent on right-hand sides that had stopped
-(from the chunks' ``lane_iters``); and
+K11, over the window's iterations: 100 where every step took it, a
+little more with the overrun steps); the share of fused steps issued
+after every lane of their loop had stopped (``krylov.overrun_steps``
+over the iterations: the cost of reading the stop flags a step late);
+the share of lane-iterations spent on right-hand sides that had
+stopped (from the chunks' ``lane_iters``); and
 ``helmholtz.prepare_operator``'s seconds.
 Of every window: ms an iteration (host clock), the device's idle share
 (device-side annotations are no activity), and each batch's iterations
@@ -340,6 +343,8 @@ def main(argv=None):
                 'syncs_per_iter': counters.get('solver.syncs', 0) / iters,
                 'fused_step_share': 100.0 * counters.get(
                     'krylov.fused_steps', 0) / iters,
+                'overrun_step_share': 100.0 * counters.get(
+                    'krylov.overrun_steps', 0) / iters,
                 'algebra_ms_per_iter': per * sum(
                     a['algebra_by_span'].values())})
         if device != 'cpu':

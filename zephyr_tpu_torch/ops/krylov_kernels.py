@@ -17,8 +17,9 @@ the operator (``solver.krylov._bicgstab_fused`` drives them):
 
 after ``prologue`` (rhat, ||b||, atol, <r, r>) once a solve. Every
 per-lane scalar lives in a ``State`` on the fields' device, which the
-kernels read and update themselves; the host reads only ``act``, once a
-step, to end the loop. A frozen lane (act 0) is left as it is.
+kernels read and update themselves; the host reads only ``act``, one
+step late (``ActReads``), to end the loop. A frozen lane (act 0) is left
+as it is.
 
 Each function runs its twin (``*_ref``: the same arguments, state, freeze
 and breakdown logic in torch) for CPU tensors and its kernel for CUDA
@@ -138,6 +139,51 @@ class State:
 
     def relres(self):
         return self.sc[RNORM] / self.sc[BNORM]
+
+
+class ActReads:
+    '''
+    A State's ``act`` row on its way to the host, so that the host can
+    read it a step late without draining the stream. ``post()`` queues a
+    snapshot of the row as it stands on the stream: on a card a
+    non-blocking copy into pinned host memory and an event on the current
+    stream, on the CPU a plain copy. ``any()`` waits for the oldest
+    snapshot not yet read (on a card for its event only: what was queued
+    after it runs on) and says whether any lane was active in it. At most
+    DEPTH snapshots wait to be read at once.
+    '''
+
+    DEPTH = 2
+
+    def __init__(self, st):
+        self._act = st.act()
+        self._cuda = self._act.device.type == 'cuda'
+        self._host = [torch.empty(st.R, dtype=torch.int32,
+                                  pin_memory=self._cuda)
+                      for _ in range(self.DEPTH)]
+        self._events = ([torch.cuda.Event() for _ in range(self.DEPTH)]
+                        if self._cuda else None)
+        self._posted = self._read = 0
+
+    def post(self):
+        if self._posted - self._read == self.DEPTH:
+            raise RuntimeError('ActReads: %d snapshots wait to be read'
+                               % self.DEPTH)
+        slot = self._posted % self.DEPTH
+        self._host[slot].copy_(self._act, non_blocking=self._cuda)
+        if self._cuda:
+            self._events[slot].record(
+                torch.cuda.current_stream(self._act.device))
+        self._posted += 1
+
+    def any(self):
+        if self._read == self._posted:
+            raise RuntimeError('ActReads: no snapshot to read')
+        slot = self._read % self.DEPTH
+        if self._cuda:
+            self._events[slot].synchronize()
+        self._read += 1
+        return bool(self._host[slot].any())
 
 
 # --- the kernels ----------------------------------------------------------

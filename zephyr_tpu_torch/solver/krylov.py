@@ -21,8 +21,10 @@ With tracing on (``utils.profiling.recording``) BiCGStab opens a span
 ``krylov.step`` an iteration (or the check that ends the loop), with the
 children ``krylov.sync`` (the host wait) and ``krylov.matvec``; the
 preconditioner opens its own. Every host read counts in ``solver.syncs``,
-every fused step in ``krylov.fused_steps``. ``bicgstab_fixed``, which
-runs inside a preconditioner, opens and counts none.
+every fused step in ``krylov.fused_steps`` and every fused step issued
+after the last lane had stopped in ``krylov.overrun_steps``.
+``bicgstab_fixed``, which runs inside a preconditioner, opens and counts
+none.
 '''
 
 import contextlib
@@ -80,7 +82,10 @@ def bicgstab(matvec, b, M=None, x0=None, tol=1e-6, maxiter=1000,
         BicgstabResult(x, iters (R,), relres (R,))
 
     The loop ends once every right-hand side is done, which costs one
-    host sync an iteration; ``bicgstab_fixed`` runs without it.
+    host read an iteration: a sync on the eager recurrence, and on K11 a
+    wait for the step before the last, so the card is never left without
+    queued work (one step may run after the last lane stopped, and
+    changes nothing); ``bicgstab_fixed`` runs without it.
     '''
 
     return _bicgstab(matvec, b, M, x0, tol, maxiter, fixed=False,
@@ -210,15 +215,22 @@ def _bicgstab_fused(matvec, b, M, x0, tol, maxiter, fixed):
     launches a step around M and the operator, each field streamed once,
     x, r, p and s updated in place, and every per-lane scalar (rho, alpha,
     omega, k, down, act, atol) in a ``State`` that the kernels read and
-    write on the device. The one host read of a step is ``act``, the
-    loop's end condition; ``fixed`` makes none. A frozen lane's blocks
-    return at once, so its x and r stay as they were. For CPU tensors the
-    kernels' plain twins run instead (the tests drive it so). b, x0 and
-    what M and the operator return are made dense (contiguous, no
-    conjugate or negative view) before the kernels read them; x0 must
-    have b's shape.
+    write on the device. A frozen lane's blocks return at once, so its x
+    and r stay as they were. For CPU tensors the kernels' plain twins run
+    instead (the tests drive it so). b, x0 and what M and the operator
+    return are made dense (contiguous, no conjugate or negative view)
+    before the kernels read them; x0 must have b's shape.
 
-    With tracing on, each step counts in ``krylov.fused_steps``.
+    The one host read of a step is ``act``, the loop's end condition, one
+    step late (``kk.ActReads``): before issuing step i + 1 the host waits
+    for the flags of step i - 1 only, so step i is still on the card and
+    the stream never drains. A step issued after every lane had stopped
+    (an overrun: at most one a solve, none when it ends on maxiter) does
+    nothing to x, r or the state, so the answers are those of a loop that
+    reads each step's flags before the next. ``fixed`` reads none.
+
+    With tracing on, each step counts in ``krylov.fused_steps``, an
+    overrun also in ``krylov.overrun_steps``.
     '''
 
     if b.requires_grad and torch.is_grad_enabled():
@@ -241,26 +253,44 @@ def _bicgstab_fused(matvec, b, M, x0, tol, maxiter, fixed):
     def sp(name):
         return _QUIET if fixed else span(name)
 
-    for _ in range(maxiter):
-        with sp('krylov.step'):
-            if not fixed:
+    def step():
+        nonlocal v
+        kk.update_p(r, p, v, st)
+        phat = _dense(M(p))
+        with sp('krylov.matvec'):
+            v = _dense(matvec(phat))
+        kk.dot_rv(rhat, v, st)
+        kk.update_s(r, v, s, st)
+        shat = _dense(M(s))
+        with sp('krylov.matvec'):
+            t = _dense(matvec(shat))
+        kk.dots_ts(t, s, st)
+        kk.update_xr(rhat, x, r, s, t, phat, shat, st, maxiter)
+
+    if fixed:
+        for _ in range(maxiter):
+            step()
+        return BicgstabResult(x, st.iters(), st.relres())
+
+    reads = kk.ActReads(st)
+    reads.post()                    # the prologue's flags
+    overrun = 0
+    for issued in range(maxiter + 1):
+        with span('krylov.step'):
+            if issued:
+                # the flags of the step before the one still on the card
                 with span('krylov.sync'):
-                    flags = st.act().cpu()  # the one host sync of a step
+                    going = reads.any()
                 add('solver.syncs')
-                if not bool(flags.any()):
+                if not going:
+                    overrun = 1     # the step on the card found none
                     break
-                add('krylov.fused_steps')
-            kk.update_p(r, p, v, st)
-            phat = _dense(M(p))
-            with sp('krylov.matvec'):
-                v = _dense(matvec(phat))
-            kk.dot_rv(rhat, v, st)
-            kk.update_s(r, v, s, st)
-            shat = _dense(M(s))
-            with sp('krylov.matvec'):
-                t = _dense(matvec(shat))
-            kk.dots_ts(t, s, st)
-            kk.update_xr(rhat, x, r, s, t, phat, shat, st, maxiter)
+            if issued == maxiter:
+                break
+            add('krylov.fused_steps')
+            step()
+            reads.post()
+    add('krylov.overrun_steps', overrun)
     return BicgstabResult(x, st.iters(), st.relres())
 
 
